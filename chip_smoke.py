@@ -3,13 +3,24 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain torch version on the card (bit-exact: the
-kernels count integers), times them, checks the walk's two engines against
-each other, and then drives the port's main path: ``repro_torch.compile``
-on the 11-kernel suite at 4x4 with a sweep width of 4, with the default
-solver and with the GPU walk as the solver. Every phase prints one JSON
-line; the last line is ``{"ok": true, "device": {...}}``. Any failure
+It builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one nvcc each, in parallel) and drives both of the port's paths.
+
+The mapper: it holds ``clause_eval`` and ``flip_update`` against their
+plain torch versions on the card (bit-exact: the kernels count integers),
+times them, checks the walk's two engines against each other, and then
+drives ``repro_torch.compile`` on the 11-kernel suite at 4x4 with a sweep
+width of 4, with the default solver and with the GPU walk as the solver.
+
+The LM: it holds ``flash_attention`` and ``ssd_scan`` against their plain
+versions at hymba_1_5b's shapes, times them beside the library call where
+there is one, then serves hymba_1_5b at its published widths in bf16 with
+``attn_impl="flash"`` (4 prompts of 2048 seeded tokens, prefill into the
+ring buffer, 32 greedy decode steps; 32 flash launches per prefill), and
+holds flash against blockwise prefill in f32 on the same weights and tokens.
+
+Every phase prints one JSON line; the line before the last is the
+``kernels`` JSON, the last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without that line, as does a machine without
 CUDA or a directory without the port's sources.
 """
@@ -29,7 +40,16 @@ EXPECTED_II_4X4 = {"sha": 7, "sha2": 8, "gsm": 6, "patricia": None,
 WALKSAT_KERNELS = ("sha", "gsm", "nw")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit rate
+F32_FLOPS = 67e12                # H100 SXM non-tensor f32 rate
+BF16_TENSOR_FLOPS = 989.4e12     # H100 SXM dense bf16 tensor-core rate
 REPS = 50
+# the LM slice: hymba_1_5b's attention and SSM shapes, and its serving run
+ATTN_SHAPE = dict(B=4, Hq=25, Hkv=5, S=2048, D=64)
+SSD_SHAPE = dict(b=4, s=2048, h=32, p=100, n=16)
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, AGREE_STEPS = 4, 2048, 32, 8
+FLASH_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
+SSD_TOL = 2e-3
+BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
 def emit(phase, **kw):
@@ -383,6 +403,328 @@ def main_path(torch):
     return launches
 
 
+def _close(got, want, atol, rtol):
+    """(max abs error, whether every element is within atol + rtol|want|)
+    of ``got`` against ``want``, in f32."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= atol + rtol * want.abs()).all())
+
+
+def flash_bound_ms(B, Hq, Hkv, S, D, window, itemsize, flops_per_s):
+    """Least time for one prefill attention call: q, k, v read once and o
+    written once, against 4*D flops for every visible (q, k) pair (QK^T
+    and PV; causal, and inside the window when there is one)."""
+    q = list(range(S))
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in q)
+    flops = pairs * 4 * D * B * Hq
+    nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * S * D) * itemsize
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def ssd_bound_ms(b, s, h, p, n, chunk, x_itemsize, bc_itemsize, flops_per_s):
+    """Least time for one scan: x, dt, B, C (and A_log, D) read once, y
+    written once, against the chunked form's products: C.B^T and the
+    decay-weighted product with x over the causal half of each chunk, and
+    the two [l,p,n] state products per chunk."""
+    nc = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    flops = b * h * nc * (2 * tri * (n + p) + 4 * chunk * n * p)
+    nbytes = (2 * b * s * h * p * x_itemsize + b * s * h * 4
+              + 2 * b * s * n * bc_itemsize + 2 * h * 4)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def lm_kernel_phase(torch):
+    """flash_attention and ssd_scan against their plain versions at
+    hymba_1_5b's shapes, with their times, bounds and (for attention) the
+    library call's time. Returns the kernels-line entries, which hold the
+    shapes the served model gives them: bf16 with the 1024 window for
+    attention, bf16 x/B/C at the config's chunk of 256 for the scan."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.models.layers import ssd_chunked
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    B, Hq, Hkv, S, D = (ATTN_SHAPE[k] for k in ("B", "Hq", "Hkv", "S", "D"))
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = FLASH_TOL[str(dtype)]
+        # the model's layout: [B,S,H,D] activations seen as [B,H,S,D] views
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+        for window in (1024, 0):
+            got = flash_attention(q, k, v, causal=True, window=window)
+            want = attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err, ok = _close(got, want, tol, tol)
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(f"flash_attention {dtype} window "
+                                     f"{window}: max abs err {err} beyond "
+                                     f"atol=rtol={tol}")
+            pos = torch.arange(S, device=dev)
+            mask = pos[None, :] <= pos[:, None]
+            if window:
+                mask &= pos[None, :] > pos[:, None] - window
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err, _ = _close(lib(), want, tol, tol)
+            row = {
+                "ms": cuda_ms(torch, lambda: flash_attention(
+                    q, k, v, causal=True, window=window)),
+                "plain_ms": cuda_ms(torch, lambda: attention_ref(
+                    q, k, v, causal=True, window=window), reps=10),
+                "library_ms": cuda_ms(torch, lib),
+                "bound": flash_bound_ms(
+                    B, Hq, Hkv, S, D, window, q.element_size(),
+                    BF16_TENSOR_FLOPS if dtype == torch.bfloat16
+                    else F32_FLOPS),
+                "max_abs_err": err, "library_max_abs_err": lib_err,
+                "shape": f"q [{B},{Hq},{S},{D}] k/v [{B},{Hkv},{S},{D}] "
+                         f"{str(dtype)[6:]} window {window} causal, "
+                         f"swapped [B,S,H,D] views"}
+            emit("flash_attention", tolerance=tol, **row)
+            if dtype == torch.bfloat16 and window == 1024:
+                out["flash_attention"] = row
+            del got, want
+    b, s, h, p, n = (SSD_SHAPE[k] for k in ("b", "s", "h", "p", "n"))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.5
+        A_log = torch.rand((h,), generator=gen, device=dev)
+        Bm, Cm = (torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        Dv = torch.rand((h,), generator=gen, device=dev)
+        want = ssd_ref(x, dt, A_log, Bm, Cm, Dv)
+        # the f32 algorithms agree to 2e-3; a bf16 y is also rounded once
+        # (twice between two bf16 results)
+        rtol = SSD_TOL + (BF16_UNIT_ROUNDOFF if dtype == torch.bfloat16
+                          else 0.0)
+        for chunk in (128, 256):
+            got = ssd_scan(x, dt, A_log, Bm, Cm, Dv, chunk=chunk)
+            torch.cuda.synchronize()
+            err, ok = _close(got, want, SSD_TOL, rtol)
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(f"ssd_scan {dtype} chunk {chunk}: max "
+                                     f"abs err {err} beyond atol={SSD_TOL} "
+                                     f"rtol={rtol} against ssd_ref")
+            chunked = ssd_chunked(x, dt, A_log, Bm, Cm, Dv, chunk)
+            c_err, c_ok = _close(got, chunked, SSD_TOL,
+                                 rtol + (BF16_UNIT_ROUNDOFF
+                                         if dtype == torch.bfloat16 else 0))
+            if not c_ok:
+                raise AssertionError(f"ssd_scan {dtype} chunk {chunk}: max "
+                                     f"abs err {c_err} against ssd_chunked")
+            row = {
+                "ms": cuda_ms(torch, lambda: ssd_scan(
+                    x, dt, A_log, Bm, Cm, Dv, chunk=chunk)),
+                "plain_ms": cuda_ms(torch, lambda: ssd_ref(
+                    x, dt, A_log, Bm, Cm, Dv), reps=3),
+                "chunked_ms": cuda_ms(torch, lambda: ssd_chunked(
+                    x, dt, A_log, Bm, Cm, Dv, chunk), reps=10),
+                "library_ms": None,
+                "bound": ssd_bound_ms(
+                    b, s, h, p, n, chunk, x.element_size(),
+                    Bm.element_size(),
+                    BF16_TENSOR_FLOPS if dtype == torch.bfloat16
+                    else F32_FLOPS),
+                "max_abs_err": err, "chunked_max_abs_err": c_err,
+                "max_abs_y": float(want.abs().max()),
+                "shape": f"x [{b},{s},{h},{p}] B/C [{b},{s},{n}] "
+                         f"{str(dtype)[6:]} x/B/C, dt f32, chunk {chunk}",
+                "note": "no model call site (ssm_layer uses ssd_chunked, "
+                        "as in the reference); driven through its entry "
+                        "point at hymba_1_5b's SSM shapes"}
+            emit("ssd_scan", atol=SSD_TOL, rtol=rtol, **row)
+            if dtype == torch.bfloat16 and chunk == 256:
+                out["ssd_scan"] = row
+            del got, chunked
+        del want
+    return out
+
+
+def _counters():
+    from repro_torch.kernels.clause_eval import true_counts, true_counts_window
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flip_update import flip_update
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"clause_eval_window": true_counts_window,
+            "clause_eval": true_counts, "flip_update": flip_update,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+
+
+def serve_phase(torch):
+    """The LM main path: hymba_1_5b at its published widths in bf16 with
+    attn_impl="flash", weights from LM.init (seeded), 4 prompts of 2048
+    seeded tokens prefilled into the ring buffer (min(2048, 1024) slots),
+    then 32 greedy decode steps. Returns the launch counts of this run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.model import LM
+    dev = torch.device("cuda", 0)
+    cfg = get_config("hymba_1_5b").replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in lm.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    serve_lm(lm, torch.randint(0, cfg.vocab, (1, 256), generator=gen,
+                               device=dev), 2)             # warm-up
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    res = serve_lm(lm, prompts, SERVE_STEPS)
+    launches = {name: f.launches for name, f in counters.items()}
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{launches['flash_attention']} times, expected "
+                             f"one per layer ({cfg.n_layers})")
+    finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits)
+    if not finite or res.tokens.shape != (SERVE_BATCH, SERVE_STEPS):
+        raise AssertionError("serve: non-finite logits or wrong token shape")
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+         requests=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+         ring_window=min(SERVE_PROMPT, cfg.attn_window),
+         decode_steps=SERVE_STEPS, param_bytes=param_bytes,
+         init_s=init_s,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         prefill_s=res.prefill_s,
+         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
+         decode_s=res.decode_s,
+         decode_tokens_per_s=SERVE_BATCH * SERVE_STEPS / res.decode_s,
+         launches=launches, logits_finite=finite,
+         first_tokens=res.tokens[:, :8].tolist())
+    serve_profile(torch, lm, prompts)
+    return {"flash_attention": launches["flash_attention"],
+            "ssd_scan": launches["ssd_scan"]}
+
+
+def _profile(torch, fn, match):
+    """Device time of ``fn`` from torch.profiler: the kernels' total time
+    and launch count, the time of the kernels whose name holds ``match``,
+    and the operators that launched the most device time (self time of
+    the kernels each launched directly)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+    rows = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in rows if e.device_type == cuda]
+    ops = sorted((e for e in rows if e.device_type != cuda and dev_us(e)),
+                 key=dev_us, reverse=True)
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    return {"device_ms": sum(dev_us(e) for e in kernels) / 1e3,
+            f"{match}_ms": sum(dev_us(e) for e in kernels
+                               if match in e.key) / 1e3,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_ops": [[e.key, dev_us(e) / 1e3, e.count] for e in ops[:10]],
+            "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count]
+                            for e in sorted(kernels, key=dev_us,
+                                            reverse=True)[:6]]}
+
+
+def serve_profile(torch, lm, prompts, reps=3):
+    """Where the served model's time goes: one prefill and one decode step
+    of the serve run's shapes under torch.profiler (device time, launches,
+    top operators), beside their wall times without the profiler; a
+    busy share is device time over wall time. (Holding the stream with a
+    sleep kernel, as the walk_step phase does, cannot time a decode step:
+    its thousands of launches fill the launch queue, and the host then
+    waits behind the sleep.)"""
+    _, cache = lm.prefill_with_cache(prompts)
+    tok = prompts[:, -1:]
+    t = prompts.shape[1]
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.decode_step(cache, tok, t)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        t += 1
+    decode = _profile(torch, lambda: lm.decode_step(cache, tok, t),
+                      "flash_fwd_kernel")
+    walls_p = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill_with_cache(prompts)
+        torch.cuda.synchronize()
+        walls_p.append((time.perf_counter() - t0) * 1e3)
+    prefill = _profile(torch, lambda: lm.prefill_with_cache(prompts),
+                       "flash_fwd_kernel")
+    flash_ms = prefill["flash_fwd_kernel_ms"]
+    wall_d, wall_p = statistics.median(walls), min(walls_p)
+    emit("serve_profile", batch=prompts.shape[0],
+         prompt_len=prompts.shape[1],
+         decode_step_wall_ms=wall_d,
+         decode_device_busy_share=decode["device_ms"] / wall_d,
+         decode=decode, prefill_wall_ms=wall_p,
+         prefill_device_busy_share=prefill["device_ms"] / wall_p,
+         prefill_flash_ms=flash_ms,
+         prefill_flash_share=flash_ms / prefill["device_ms"],
+         prefill=prefill)
+
+
+def serve_agreement_phase(torch):
+    """hymba_1_5b in f32 at its published widths, prefill through the
+    flash kernel and through the blockwise path (the reference's default),
+    on the same weights, prompts and fed tokens: the prefill's last logits
+    and 8 decode steps' logits agree to 1e-3 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.model import LM
+    dev = torch.device("cuda", 0)
+    base = get_config("hymba_1_5b").replace(dtype="float32")
+    lm = LM(base.replace(attn_impl="flash"), dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, base.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+    flash_attention.launches = 0
+    res_f = serve_lm(lm, prompts, AGREE_STEPS)
+    flash_launches = flash_attention.launches
+    lm_b = LM(base.replace(attn_impl="blockwise"), dev)
+    lm_b.load_state_dict(lm.state_dict())
+    res_b = serve_lm(lm_b, prompts, AGREE_STEPS, feed=res_f.fed)
+    if flash_launches != base.n_layers or \
+            flash_attention.launches != flash_launches:
+        raise AssertionError(f"agreement runs launched flash_attention "
+                             f"{flash_launches} then "
+                             f"{flash_attention.launches - flash_launches} "
+                             f"times; expected {base.n_layers} then 0")
+    largest = max(float(lg.abs().max()) for lg in res_f.logits)
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(res_f.logits, res_b.logits)]
+    if max(diffs) > 1e-3 * largest:
+        raise AssertionError(f"flash vs blockwise logits differ by "
+                             f"{max(diffs)} > 1e-3 x {largest}")
+    emit("serve_agreement", dtype="float32", steps=AGREE_STEPS,
+         largest_logit=largest, max_abs_diff_per_step=diffs,
+         max_rel_diff=max(diffs) / largest,
+         same_greedy_tokens=bool(torch.equal(res_f.tokens, res_b.tokens)),
+         flash_prefill_s=res_f.prefill_s, blockwise_prefill_s=res_b.prefill_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -394,9 +736,14 @@ def main() -> int:
     import repro_torch                      # fails without the port
     from repro_torch.kernels import _cuda
     torch.cuda.set_device(0)
+    # f32 products in full f32 (no TF32), for the kernels' plain versions
+    # and the f32 agreement run alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     environment(torch)
     t0 = time.perf_counter()
-    report = _cuda.build(["clause_eval", "flip_update"])
+    report = _cuda.build(["clause_eval", "flip_update", "flash_attention",
+                          "ssd_scan"])
     emit("build", seconds=time.perf_counter() - t0,
          per_source={n: s for n, (s, _) in report.items()},
          ptxas={n: [ln for ln in log.splitlines() if "registers" in ln
@@ -407,6 +754,13 @@ def main() -> int:
     del windows
     torch.cuda.empty_cache()
     launches = main_path(torch)
+    torch.cuda.empty_cache()
+    lm_times = lm_kernel_phase(torch)
+    torch.cuda.empty_cache()
+    launches.update(serve_phase(torch))
+    torch.cuda.empty_cache()
+    serve_agreement_phase(torch)
+    times.update(lm_times)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -416,7 +770,11 @@ def main() -> int:
             ("clause_eval", "clause_eval.cu",
              "src/repro/kernels/clause_eval/kernel.py:33"),
             ("flip_update", "flip_update.cu",
-             "src/repro/kernels/flip_update/kernel.py:47")):
+             "src/repro/kernels/flip_update/kernel.py:47"),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:77"),
+            ("ssd_scan", "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:61")):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,
@@ -424,7 +782,8 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
-            "shape": t["shape"]})
+            "shape": t["shape"], **({"note": t["note"]} if "note" in t
+                                    else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

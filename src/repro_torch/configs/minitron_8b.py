@@ -1,0 +1,18 @@
+"""Minitron-8B: pruned Nemotron dense GQA.
+
+32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000.
+[arXiv:2407.14679; hf]
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab=256000,
+)

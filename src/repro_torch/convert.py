@@ -1,20 +1,22 @@
 """Carry state between the JAX package and the port, by plain data only.
 
-The mapper has no weights: what crosses over is the input DFG and the
-walk's packed clause tensors. Both functions here are duck-typed — they
-read plain attributes and arrays and never import ``repro`` — so the
-parity tests can feed the two packages identical inputs, and a later slice
-can carry a corpus of DFGs across.
+What crosses over for the mapper is the input DFG and the walk's packed
+clause tensors; for the LM it is the parameter tree, as numpy arrays. The
+functions here are duck-typed — they read plain attributes and arrays and
+never import ``repro`` — so the parity tests can feed the two packages
+identical inputs, and a later slice can carry a corpus of DFGs across.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .core.dfg import DFG
 from .core.sat.walksat_torch import PackedCNF
+from .models.config import ModelConfig
+from .models.model import param_shapes
 
 
 def dfg_from_arrays(name: str, ops: Sequence[str], imms: Sequence[int],
@@ -96,3 +98,55 @@ def assign_from_numpy(assign, packed: PackedCNF) -> torch.Tensor:
                          f"{packed.n_vars} vars")
     return torch.from_numpy(np.array(a, bool)).to(
         packed.cvars.device)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16, as JAX hands it
+        return torch.from_numpy(np.array(a).view(np.uint16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's ``LM`` state dict from the JAX parameter tree of the
+    same config, with every leaf a numpy array
+    (``jax.tree.map(np.asarray, params)``), so that both packages compute
+    the same function.
+
+    The port keeps the JAX layout as it is: ``blocks.*`` stacked on a
+    leading layer axis, ``embed`` [Vp, D], ``final_norm`` [D] and
+    ``lm_head`` [D, Vp], every matrix [in, out] (no transposes); the keys
+    are the tree's paths joined by dots (``blocks.attn.wq``). Each leaf is
+    cast to the port's dtype for it (the model dtype; f32 for ``dt_bias``,
+    ``A_log`` and ``D``). Raises ``ValueError`` on a missing, extra or
+    misshaped leaf. The tensors are on the CPU; ``LM.load_state_dict``
+    copies them to the model's device."""
+    want = param_shapes(cfg)
+    got = _flatten(tree)
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"lm_params_from_numpy: {cfg.name}: missing leaves "
+                         f"{missing}, extra leaves {extra}")
+    out = {}
+    for name, (shape, dt) in want.items():
+        t = _tensor(got[name])
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"lm_params_from_numpy: {cfg.name}: leaf {name} "
+                             f"has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        out[name] = t.to(dt)
+    return out

@@ -1,0 +1,314 @@
+"""Model layers in torch: norm, RoPE, attention, SwiGLU, SSD (copies of
+the JAX package's ``models/layers.py`` for the dense, SSM and hybrid
+families, forward only).
+
+Every function takes plain tensors and dicts of parameter tensors, keeps
+the reference's layouts ([B,S,H,D] activations, [in, out] weights) and
+computes in f32 exactly where the reference upcasts. Attention is
+*blockwise* (online softmax over KV blocks) by default; ``impl="flash"``
+sends prefill attention to the hand-written CUDA kernel
+(``repro_torch.kernels.flash_attention``; its plain version on the CPU).
+The MoE layers and int8 KV quantisation are not ported: the ``LM``
+refuses configurations that need them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+from .config import ModelConfig
+from .sharding import AttnPlan
+
+Params = Dict[str, torch.Tensor]
+_NEG = -2.0 ** 30  # large-negative for masking (safe in bf16/f32)
+
+
+# ----------------------------------------------------------------- basics
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm forward (the reference's custom VJP belongs to training)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    return (xf * r).to(x.dtype) * w
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] (int)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs              # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]                      # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def naive_attention(q, k, v, q_pos, k_pos, window: int = 0):
+    """O(S_q*S_k) reference. q: [B,Sq,H,D], k/v: [B,Sk,KV,D]."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    group = h // kvh
+    qf = q.float() / math.sqrt(d)
+    qg = qf.reshape(b, sq, kvh, group, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    mask = k_pos[:, None, :] <= q_pos[:, :, None]            # causal
+    if window:
+        mask &= k_pos[:, None, :] > q_pos[:, :, None] - window
+    scores = torch.where(mask[:, None, None, :, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, q_pos, k_pos, window: int = 0,
+                        block: int = 512):
+    """Flash-style online-softmax attention over KV blocks of ``block``
+    keys (a Python loop where the reference scans). Peak memory
+    O(Sq * block); same signature and semantics as naive_attention."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kvh = k.shape[2]
+    group = h // kvh
+    nblk = -(-sk // block)
+    pad = nblk * block - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=2 ** 30)
+    qf = (q.float() / math.sqrt(d)).reshape(b, sq, kvh, group, d)
+    m = torch.full((b, kvh, group, sq), _NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, group, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, group, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for i in range(nblk):
+        kc = k[:, i * block:(i + 1) * block].float()
+        vc = v[:, i * block:(i + 1) * block].float()
+        pc = k_pos[:, i * block:(i + 1) * block]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc)
+        mask = pc[:, None, :] <= q_pos[:, :, None]
+        if window:
+            mask &= pc[:, None, :] > q_pos[:, :, None] - window
+        s = torch.where(mask[:, None, None, :, :], s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd",
+                                                    p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return out.to(q.dtype)
+
+
+def attention_layer(cfg: ModelConfig, plan: AttnPlan, p: Params,
+                    x: torch.Tensor, positions: torch.Tensor,
+                    cache: Optional[Params] = None, window: int = 0,
+                    impl: str = "blockwise",
+                    ) -> Tuple[torch.Tensor, Params]:
+    """x: [B,S,D]. cache: {"k","v": [B,Skv,KV,hd], "pos": [B,Skv]} (the
+    decode ring buffer). Returns (out [B,S,D], {"k", "v"} of this call,
+    k after RoPE)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, plan.h_pad, hd)
+    k = (x @ p["wk"]).reshape(b, s, plan.kv_virtual, hd)
+    v = (x @ p["wv"]).reshape(b, s, plan.kv_virtual, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(plan.h_pad, hd)
+        k = k + p["bk"].reshape(plan.kv_virtual, hd)
+        v = v + p["bv"].reshape(plan.kv_virtual, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        kk, vv, kpos = k, v, positions
+    else:
+        # decode: attend over the ring buffer PLUS the current token(s);
+        # stale/unwritten ring slots are excluded by the position mask
+        kk = torch.cat([cache["k"], k], dim=1)
+        vv = torch.cat([cache["v"], v], dim=1)
+        kpos = torch.cat([cache["pos"], positions], dim=1)
+
+    if impl == "flash" and cache is None:
+        # kernel layout [B,H,S,D] as swapped views; the kernel takes their
+        # strides, and its output has q's strides, so the swap back is
+        # contiguous. Prefill only (contiguous positions); decode keeps the
+        # blockwise path for ring-buffer position masks.
+        out = flash_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                              vv.transpose(1, 2), causal=True,
+                              window=window).transpose(1, 2)
+    else:
+        fn = blockwise_attention if impl == "blockwise" else naive_attention
+        out = fn(q, kk, vv, positions, kpos, window=window)
+    out = out.reshape(b, s, plan.h_pad * hd) @ p["wo"]
+    return out, {"k": k, "v": v}
+
+
+# ------------------------------------------------------------------- MLP
+def swiglu(p: Params, x: torch.Tensor, bias: bool = False) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    if bias:
+        g = g + p["b_gate"]
+        u = u + p["b_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    out = h @ p["w_down"]
+    if bias:
+        out = out + p["b_down"]
+    return out
+
+
+# ------------------------------------------------------------------- SSD
+def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, return_state: bool = False):
+    """Mamba2 SSD, chunked dual form (arXiv:2405.21060 listing 1).
+
+    x:  [b, s, h, p]   (heads h, head dim p)
+    dt: [b, s, h]      (softplus-ed outside)
+    A_log: [h]         B, C: [b, s, n]  (single group), D: [h]
+    Returns y: [b, s, h, p], or (y, final_state [b,h,p,n]) when
+    ``return_state`` (the prefill -> decode handoff).
+
+    The reference's three multi-operand einsums are written as explicit
+    pairwise products, so the arithmetic does not depend on the einsum
+    path torch picks and no intermediate holds l*l*h*p values.
+    """
+    b, s, h, hp = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        # pad to a chunk multiple; dt=0 makes padding a no-op for the state
+        pad = chunk - s % chunk
+        xp = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dtp = F.pad(dt, (0, 0, 0, pad))
+        Bp = F.pad(B, (0, 0, 0, pad))
+        Cp = F.pad(C, (0, 0, 0, pad))
+        out = ssd_chunked(xp, dtp, A_log, Bp, Cp, D, chunk, return_state)
+        if return_state:
+            return out[0][:, :s], out[1]
+        return out[:, :s]
+    nc = s // chunk
+    xf = x.float()
+    dtf = dt.float()
+    A = -torch.exp(A_log.float())                            # [h], negative
+    dA = dtf * A                                             # [b,s,h]
+    xc = xf.reshape(b, nc, chunk, h, hp)
+    dtc = dtf.reshape(b, nc, chunk, h)
+    dAc = dA.reshape(b, nc, chunk, h)
+    Bc = B.float().reshape(b, nc, chunk, n)
+    Cc = C.float().reshape(b, nc, chunk, n)
+    seg = torch.cumsum(dAc, dim=2)                           # [b,nc,l,h]
+    # intra-chunk (diagonal block): attention-like with decay matrix L
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]      # [b,nc,l,l,h]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    cb = Cc @ Bc.transpose(-1, -2)                           # [b,nc,l,m]
+    # y_diag[l,h,p] = sum_m cb[l,m] L[l,m,h] dt[m,h] x[m,h,p]
+    w = cb[..., None] * L * dtc[:, :, None, :, :]            # [b,nc,l,m,h]
+    y_diag = (w.permute(0, 1, 4, 2, 3)                       # [b,nc,h,l,m]
+              @ xc.permute(0, 1, 3, 2, 4)                    # [b,nc,h,m,p]
+              ).permute(0, 1, 3, 2, 4)                       # [b,nc,l,h,p]
+    # chunk-level states: decayed sum of inputs
+    decay_to_end = torch.exp(seg[:, :, -1:, :] - seg)        # [b,nc,l,h]
+    wx = (decay_to_end * dtc)[..., None] * xc                # [b,nc,l,h,p]
+    states = wx.permute(0, 1, 3, 4, 2) @ Bc[:, :, None]      # [b,nc,h,p,n]
+    # inter-chunk recurrence over chunk states
+    chunk_decay = torch.exp(seg[:, :, -1, :])                # [b,nc,h]
+    prev = torch.zeros((b, h, hp, n), dtype=torch.float32, device=x.device)
+    prev_states = []
+    for c in range(nc):
+        prev_states.append(prev)                             # state *before* chunk
+        prev = states[:, c] + chunk_decay[:, c, :, None, None] * prev
+    final_state = prev
+    prev_states = torch.stack(prev_states, dim=1)            # [b,nc,h,p,n]
+    # contribution of carried state to each position
+    state_decay = torch.exp(seg)                             # decay from chunk start
+    cs = (Cc[:, :, None] @ prev_states.transpose(-1, -2)     # [b,nc,h,l,p]
+          ).permute(0, 1, 3, 2, 4)                           # [b,nc,l,h,p]
+    y_off = state_decay[..., None] * cs
+    y = (y_diag + y_off).reshape(b, s, h, hp)
+    y = y + xf * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    if return_state:
+        return y, final_state
+    return y
+
+
+def ssd_decode_step(state, x, dt, A_log, B, C, D):
+    """Single-token SSD recurrence. state: [b,h,p,n]; x: [b,h,p];
+    dt: [b,h]; B,C: [b,n]. Returns (y [b,h,p], new state)."""
+    A = -torch.exp(A_log.float())
+    dtf = dt.float()
+    dA = torch.exp(dtf * A)                                  # [b,h]
+    xf = x.float()
+    upd = dtf[:, :, None, None] * xf[..., None] * B.float()[:, None, None, :]
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
+    y = y + xf * D.float()[None, :, None]
+    return y.to(x.dtype), new_state
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 prev: Optional[torch.Tensor]):
+    """Depthwise causal conv. x: [B,S,F], w: [K,F], prev: [B,K-1,F] or None.
+    A sum of K shifted slices. Returns (silu(conv(x)), new_prev [B,K-1,F])."""
+    b, s, f = x.shape
+    k = w.shape[0]
+    if prev is None:
+        prev = torch.zeros((b, k - 1, f), dtype=x.dtype, device=x.device)
+    xp = torch.cat([prev, x], dim=1)
+    y = sum(xp[:, i:i + s, :].float() * w[i].float() for i in range(k))
+    y = F.silu(y).to(x.dtype)
+    return y, xp[:, -(k - 1):, :]
+
+
+def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              cache: Optional[Params] = None, want_cache: bool = False):
+    """Mamba2 mixer. x: [B,S,D]. If ``cache`` is given (decode), S must be 1.
+    Returns (out [B,S,D], new_cache)."""
+    b, s, d = x.shape
+    h, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    di = h * hp
+    z = x @ p["w_z"]
+    xin = x @ p["w_x"]
+    Bc = x @ p["w_B"]
+    Cc = x @ p["w_C"]
+    dt = x @ p["w_dt"]
+    cv = cache or {}
+    xin, conv_x = _causal_conv(xin, p["conv_x"], cv.get("conv_x"))
+    Bc, conv_B = _causal_conv(Bc, p["conv_B"], cv.get("conv_B"))
+    Cc, conv_C = _causal_conv(Cc, p["conv_C"], cv.get("conv_C"))
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    xh = xin.reshape(b, s, h, hp)
+    if cache is None:
+        if want_cache:  # prefill: also hand the final state to decode
+            y, new_state = ssd_chunked(xh, dt, p["A_log"], Bc, Cc, p["D"],
+                                       cfg.ssm_chunk, return_state=True)
+        else:
+            y = ssd_chunked(xh, dt, p["A_log"], Bc, Cc, p["D"],
+                            cfg.ssm_chunk)
+            new_state = None
+    else:
+        if s != 1:
+            raise ValueError(f"ssm_layer: decode takes one token, got {s}")
+        y1, new_state = ssd_decode_step(
+            cache["state"], xh[:, 0], dt[:, 0], p["A_log"], Bc[:, 0],
+            Cc[:, 0], p["D"])
+        y = y1[:, None]
+    y = y.reshape(b, s, di)
+    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
+    out = y @ p["w_out"]
+    new_cache = ({"state": new_state, "conv_x": conv_x, "conv_B": conv_B,
+                  "conv_C": conv_C}
+                 if (cache is not None or want_cache) else None)
+    return out, new_cache

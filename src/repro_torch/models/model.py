@@ -1,0 +1,388 @@
+"""The LM in torch: parameters, forward, logits, prefill and decode (a copy
+of the JAX package's ``models/model.py`` for the dense, SSM and hybrid
+families, including ``audio``/``vlm`` fed tokens or embeddings, which take
+the dense block).
+
+The parameters keep the reference's tree: ``blocks.*`` stacked on a
+leading layer axis, plus ``embed``, ``final_norm`` and ``lm_head``, each
+in the reference's [in, out] layout; ``state_dict()`` keys are the tree's
+paths joined by dots (``blocks.attn.wq``), which is what
+``repro_torch.convert.lm_params_from_numpy`` produces. The port runs on one
+GPU, so the head plan is read at tp=1 and there are no sharding
+constraints. The layers run in a Python loop over the stacked layer axis
+(the reference scans), and ``decode_step`` updates the ring-buffer cache
+in place (the reference returns a new one). Not ported: the ``moe``
+family and ``kv_quant`` (both raise ``NotImplementedError``), and the
+training step.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import layers
+from .config import ModelConfig
+from .sharding import AttnPlan, pad_to, plan_attention
+
+Params = Dict[str, Any]
+_F32_LEAVES = ("dt_bias", "A_log", "D")   # f32 whatever the model dtype
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family == "moe" or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the moe family (moe_sort/moe_einsum/moe_layer) is "
+            f"not ported yet")
+    if cfg.kv_quant:
+        raise NotImplementedError(f"{cfg.name}: the int8 KV cache "
+                                  f"(kv_quant=True) is not ported yet")
+    if cfg.family not in ("dense", "ssm", "hybrid", "audio", "vlm"):
+        raise ValueError(cfg.family)
+
+
+def _block_shapes(cfg: ModelConfig, plan: Optional[AttnPlan]
+                  ) -> Dict[str, Tuple[int, ...]]:
+    """Leaf name -> shape for ONE block (unstacked), in the reference's
+    order (the order ``LM.init`` draws them in)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    out: Dict[str, Tuple[int, ...]] = {"ln1": (d,)}
+    if not cfg.is_attention_free:
+        out["attn.wq"] = (d, plan.h_pad * hd)
+        out["attn.wk"] = (d, plan.kv_virtual * hd)
+        out["attn.wv"] = (d, plan.kv_virtual * hd)
+        out["attn.wo"] = (plan.h_pad * hd, d)
+        if cfg.qkv_bias:
+            out["attn.bq"] = (plan.h_pad * hd,)
+            out["attn.bk"] = (plan.kv_virtual * hd,)
+            out["attn.bv"] = (plan.kv_virtual * hd,)
+    if cfg.has_ssm:
+        h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        di = h * hp
+        out.update({
+            "ssm.w_z": (d, di), "ssm.w_x": (d, di), "ssm.w_B": (d, n),
+            "ssm.w_C": (d, n), "ssm.w_dt": (d, h),
+            "ssm.conv_x": (cfg.d_conv, di), "ssm.conv_B": (cfg.d_conv, n),
+            "ssm.conv_C": (cfg.d_conv, n), "ssm.dt_bias": (h,),
+            "ssm.A_log": (h,), "ssm.D": (h,), "ssm.norm": (di,),
+            "ssm.w_out": (di, d)})
+    if cfg.family == "hybrid":
+        out["mix"] = (2,)
+    if cfg.d_ff:
+        out["ln2"] = (d,)
+        out["mlp.w_gate"] = (d, cfg.d_ff)
+        out["mlp.w_up"] = (d, cfg.d_ff)
+        out["mlp.w_down"] = (cfg.d_ff, d)
+        if cfg.mlp_bias:
+            out["mlp.b_gate"] = (cfg.d_ff,)
+            out["mlp.b_up"] = (cfg.d_ff,)
+            out["mlp.b_down"] = (d,)
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                        torch.dtype]]:
+    """Every parameter of the LM of ``cfg``: dotted name -> (shape, dtype),
+    block leaves stacked on a leading ``n_layers`` axis. The names are the
+    JAX parameter tree's paths joined by dots."""
+    _check_supported(cfg)
+    plan = None if cfg.is_attention_free else plan_attention(
+        cfg.n_heads, cfg.n_kv_heads, 1)
+    dt, L = _dtype(cfg), cfg.n_layers
+    out = {}
+    for name, shape in _block_shapes(cfg, plan).items():
+        leaf_dt = torch.float32 if name.split(".")[-1] in _F32_LEAVES else dt
+        out[f"blocks.{name}"] = ((L, *shape), leaf_dt)
+    vocab_pad = pad_to(cfg.vocab, 1)
+    out["embed"] = ((vocab_pad, cfg.d_model), dt)
+    out["final_norm"] = ((cfg.d_model,), dt)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((cfg.d_model, vocab_pad), dt)
+    return out
+
+
+class LM(nn.Module):
+    """The LM of ``cfg`` on ``device`` (default: the port's default
+    device, ``cuda`` unless ``repro_torch.set_default_device("cpu")``).
+    Parameters start uninitialised: fill them with :meth:`init` or
+    ``load_state_dict(convert.lm_params_from_numpy(tree, cfg))``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        shapes = param_shapes(cfg)
+        self.cfg = cfg
+        self.device = (torch.device(device) if device is not None
+                       else resolve_device())
+        self.plan: Optional[AttnPlan] = None
+        if not cfg.is_attention_free:
+            self.plan = plan_attention(cfg.n_heads, cfg.n_kv_heads, 1)
+        self.vocab_pad = pad_to(cfg.vocab, 1)
+        self.dtype = _dtype(cfg)
+        for name, (shape, dt) in shapes.items():
+            *path, leaf = name.split(".")
+            node = self
+            for part in path:
+                if not hasattr(node, part):
+                    node.add_module(part, nn.Module())
+                node = getattr(node, part)
+            node.register_parameter(leaf, nn.Parameter(
+                torch.empty(shape, dtype=dt, device=self.device),
+                requires_grad=False))
+
+    # ------------------------------------------------------------- params
+    def _leaf(self, name: str) -> torch.Tensor:
+        node = self
+        for part in name.split("."):
+            node = getattr(node, part)
+        return node
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "LM":
+        """Draw the weights as the reference's ``LM.init`` does (norms and
+        ``mix`` one, biases and ``dt_bias`` zero, ``A_log`` zero, ``D`` one,
+        matrices N(0, 0.02) with the output projections scaled by
+        1/sqrt(2 n_layers), top-level leaves N(0, 0.02)), from
+        ``generator``, which must live on the LM's device. The numbers differ
+        from JAX's: carry a JAX tree across with ``lm_params_from_numpy``."""
+        for name, (shape, dt) in param_shapes(self.cfg).items():
+            base = name.split(".")[-1]
+            leaf = self._leaf(name)
+            if not name.startswith("blocks."):
+                leaf.copy_(torch.randn(shape, generator=generator,
+                                       device=self.device) * 0.02)
+            elif base in ("ln1", "ln2", "norm", "mix", "D"):
+                leaf.fill_(1)
+            elif base in ("dt_bias", "A_log") or base.startswith("b"):
+                leaf.zero_()
+            else:
+                scale = 0.02
+                if base in ("wo", "w_down", "w_out"):
+                    scale = 0.02 / math.sqrt(2 * self.cfg.n_layers)
+                leaf.copy_(torch.randn(shape, generator=generator,
+                                       device=self.device) * scale)
+        if not self.cfg.is_attention_free:
+            self._mask_dead_heads()
+        return self
+
+    def _dead_head_mask(self) -> torch.Tensor:
+        """[h_pad] 1.0 for real q-head slots, 0.0 for padding slots."""
+        plan, cfg = self.plan, self.cfg
+        gs = cfg.n_heads // cfg.n_kv_heads
+        gs_p = plan.h_pad // (plan.kv_virtual // plan.repl)
+        slot = torch.arange(plan.h_pad, device=self.device)
+        grp, r = slot // gs_p, slot % gs_p
+        return ((grp < cfg.n_kv_heads) & (r < gs)).float()
+
+    @torch.no_grad()
+    def _mask_dead_heads(self) -> None:
+        """Zero wo rows of padded q-head slots => padding never affects
+        the function (heads compute garbage that is multiplied by zero)."""
+        mask = self._dead_head_mask()
+        hd, d = self.cfg.head_dim, self.cfg.d_model
+        wo = self.blocks.attn.wo
+        wom = wo.reshape(wo.shape[0], -1, hd, d) * mask[None, :, None, None]
+        wo.copy_(wom.reshape(wo.shape))
+
+    def _layer(self, i: int) -> Params:
+        """Layer ``i``'s parameters as the reference's per-layer tree of
+        views: {"ln1": ..., "attn": {"wq": ...}, ...}."""
+        out: Params = {}
+        for name, t in self.blocks.named_parameters():
+            *path, leaf = name.split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = t[i]
+        return out
+
+    # ------------------------------------------------------------ forward
+    def _block(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
+               cache: Optional[Params], window: int,
+               want_cache: bool = False) -> Tuple[torch.Tensor, Params]:
+        """Returns (x, new_cache); without MoE there is no aux loss."""
+        cfg = self.cfg
+        h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        new_cache: Dict[str, Any] = {}
+        impl = cfg.attn_impl if cache is None else "blockwise"
+        if cfg.family in ("dense", "audio", "vlm"):
+            a, kv = layers.attention_layer(
+                cfg, self.plan, p["attn"], h, positions,
+                cache=cache.get("attn") if cache else None, window=window,
+                impl=impl)
+            x = x + a
+            new_cache["attn_kv"] = kv
+        elif cfg.family == "ssm":
+            a, sc = layers.ssm_layer(cfg, p["ssm"], h,
+                                     cache=cache.get("ssm") if cache else None,
+                                     want_cache=want_cache)
+            x = x + a
+            new_cache["ssm"] = sc
+        elif cfg.family == "hybrid":
+            a, kv = layers.attention_layer(
+                cfg, self.plan, p["attn"], h, positions,
+                cache=cache.get("attn") if cache else None, window=window,
+                impl=impl)
+            s_out, sc = layers.ssm_layer(
+                cfg, p["ssm"], h, cache=cache.get("ssm") if cache else None,
+                want_cache=want_cache)
+            # f32 as in the reference (a bf16 tensor times an f32 array
+            # promotes there; torch would keep bf16 for a 0-d operand)
+            mix = p["mix"].float()
+            x = x + (a.float() * mix[0]
+                     + s_out.float() * mix[1]).to(x.dtype) * 0.5
+            new_cache["attn_kv"] = kv
+            new_cache["ssm"] = sc
+        else:
+            raise ValueError(cfg.family)
+        if cfg.d_ff:
+            h2 = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            x = x + layers.swiglu(p["mlp"], h2, bias=cfg.mlp_bias)
+        return x, new_cache
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = layers.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        lg = (x @ head).float()
+        # mask padded vocab slots
+        valid = torch.arange(self.vocab_pad, device=x.device) < self.cfg.vocab
+        return torch.where(valid, lg, -1e30)
+
+    def _inputs(self, tokens: Optional[torch.Tensor],
+                embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        parts = []
+        if embeds is not None:
+            parts.append(embeds.to(self.dtype))
+        if tokens is not None:
+            parts.append(self.embed_tokens(tokens))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    @torch.no_grad()
+    def forward(self, tokens: Optional[torch.Tensor],
+                embeds: Optional[torch.Tensor] = None, window: int = 0,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward. Returns (hidden [B,S,D], aux_loss), the
+        aux loss zero as the reference's is without MoE."""
+        x = self._inputs(tokens, embeds)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        for i in range(self.cfg.n_layers):
+            x, _ = self._block(self._layer(i), x, positions, cache=None,
+                               window=window)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------- decode
+    def cache_shapes(self, batch: int, window: int
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Shapes and dtypes of the decode cache (ring buffer of
+        ``window``)."""
+        cfg = self.cfg
+        dt, L = self.dtype, cfg.n_layers
+        out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        if not cfg.is_attention_free:
+            kvh, hd = self.plan.kv_virtual, cfg.head_dim
+            out["k"] = ((L, batch, window, kvh, hd), dt)
+            out["v"] = ((L, batch, window, kvh, hd), dt)
+            out["pos"] = ((L, batch, window), torch.int32)
+        if cfg.has_ssm:
+            h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            di, k = h * hp, cfg.d_conv
+            out["state"] = ((L, batch, h, hp, n), torch.float32)
+            out["conv_x"] = ((L, batch, k - 1, di), dt)
+            out["conv_B"] = ((L, batch, k - 1, n), dt)
+            out["conv_C"] = ((L, batch, k - 1, n), dt)
+        return out
+
+    def init_cache(self, batch: int, window: int) -> Params:
+        out = {}
+        for k, (shape, dt) in self.cache_shapes(batch, window).items():
+            if k == "pos":    # never-written slots are masked out by position
+                out[k] = torch.full(shape, 2 ** 30, dtype=dt,
+                                    device=self.device)
+            else:
+                out[k] = torch.zeros(shape, dtype=dt, device=self.device)
+        return out
+
+    @torch.no_grad()
+    def decode_step(self, cache: Params, tokens: torch.Tensor, t: int,
+                    ) -> Tuple[torch.Tensor, Params]:
+        """One token for the whole batch. tokens: [B,1]; t: the current
+        absolute position. Ring-buffer insert at t % window. Updates
+        ``cache`` in place and returns (logits [B,1,Vp], cache)."""
+        cfg = self.cfg
+        t = int(t)
+        x = self.embed_tokens(tokens)
+        b = x.shape[0]
+        positions = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+        if not cfg.is_attention_free:
+            slot = t % cache["k"].shape[2]
+        aw = cfg.attn_window if cfg.attn_window else 0
+        for i in range(cfg.n_layers):
+            layer_cache: Dict[str, Any] = {}
+            if not cfg.is_attention_free:
+                layer_cache["attn"] = {"k": cache["k"][i], "v": cache["v"][i],
+                                       "pos": cache["pos"][i]}
+            if cfg.has_ssm:
+                layer_cache["ssm"] = {
+                    "state": cache["state"][i], "conv_x": cache["conv_x"][i],
+                    "conv_B": cache["conv_B"][i],
+                    "conv_C": cache["conv_C"][i]}
+            x, nc = self._block(self._layer(i), x, positions, layer_cache,
+                                window=aw)
+            if not cfg.is_attention_free:
+                kv = nc["attn_kv"]
+                cache["k"][i, :, slot] = kv["k"][:, 0]
+                cache["v"][i, :, slot] = kv["v"][:, 0]
+                cache["pos"][i, :, slot] = t
+            if cfg.has_ssm:
+                for key in ("state", "conv_x", "conv_B", "conv_C"):
+                    cache[key][i] = nc["ssm"][key]
+        return self.logits(x), cache
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor,
+                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prefill forward; returns last-position logits [B,1,V]."""
+        x, _ = self.forward(tokens, embeds, window=self.cfg.attn_window)
+        return self.logits(x[:, -1:, :])
+
+    @torch.no_grad()
+    def prefill_with_cache(self, tokens: Optional[torch.Tensor],
+                           embeds: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None,
+                           ) -> Tuple[torch.Tensor, Params]:
+        """Prefill that also materializes the decode cache (ring buffer of
+        ``window`` slots; decode continues at t = prompt length).
+        Returns (last logits [B,1,Vp], cache). Each layer's k/v goes
+        straight into its ring slots (the reference stacks all layers
+        first)."""
+        cfg = self.cfg
+        x = self._inputs(tokens, embeds)
+        b, s, _ = x.shape
+        if window is None:
+            window = min(s, cfg.attn_window) if cfg.attn_window else s
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        cache = self.init_cache(b, window)
+        take = min(window, s)
+        src = torch.arange(s - take, s, device=x.device)
+        slots = src % window
+        for i in range(cfg.n_layers):
+            x, nc = self._block(self._layer(i), x, positions, cache=None,
+                                window=cfg.attn_window, want_cache=True)
+            if not cfg.is_attention_free:
+                cache["k"][i][:, slots] = nc["attn_kv"]["k"][:, s - take:s]
+                cache["v"][i][:, slots] = nc["attn_kv"]["v"][:, s - take:s]
+                cache["pos"][i][:, slots] = src.to(torch.int32)
+            if cfg.has_ssm:
+                for key in ("state", "conv_x", "conv_B", "conv_C"):
+                    cache[key][i] = nc["ssm"][key]
+        return self.logits(x[:, -1:, :]), cache

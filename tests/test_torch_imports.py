@@ -39,6 +39,28 @@ print("LOADED:" + ",".join(bad))
     assert last == "LOADED:"
 
 
+def test_lm_serving_loads_no_jax_and_no_reference():
+    last = _run(r"""
+import sys
+import repro_torch
+repro_torch.set_default_device("cpu")
+import repro_torch.convert
+import repro_torch.models.model
+import repro_torch.launch.serve
+repro_torch.launch.serve.main(["--arch", "hymba_1_5b", "--smoke", "--batch",
+                               "1", "--steps", "2"])
+from repro_torch.kernels.ssd_scan import ssd_scan
+import torch
+ssd_scan(torch.zeros(1, 4, 1, 2), torch.zeros(1, 4, 1), torch.zeros(1),
+         torch.zeros(1, 4, 2), torch.zeros(1, 4, 2), torch.zeros(1), chunk=2)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("LOADED:" + ",".join(bad))
+""")
+    assert last == "LOADED:"
+
+
 def test_cdcl_worker_closure_is_torch_free():
     last = _run(r"""
 import sys
