@@ -1,12 +1,17 @@
-"""Public flash-attention entry point: checks + dispatch + launch count.
+"""Public flash-attention entry point: checks + route + launch counts.
 
 Kernel layout [B, H, S, D], GQA via Hq % Hkv == 0. A tensor on the CPU
-takes the plain torch version (``ref.py``); a CUDA tensor launches the
-hand-written kernel or raises. The kernel takes any Sq and Sk and any
-strides on the B, H and S axes, so the JAX wrapper's padding to block
-multiples and the model's swapped views need no copies here.
+takes the plain torch version (``ref.py``); a CUDA tensor launches one of
+the two hand-written kernels or raises. The dtype alone picks the kernel
+(:func:`flash_route`): bf16 runs on the tensor cores (TMA + wgmma), f32
+on the SIMT kernel. The kernels take any Sq and Sk and any strides on the
+B, H and S axes (16-byte aligned ones for the tensor cores), so the JAX
+wrapper's padding to block multiples and the model's swapped views need
+no copies.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -15,6 +20,31 @@ from .ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("tensor_core", "simt")
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and B/H/S strides 16-byte aligned (an axis of one element never
+    moves the address, so its stride is free)."""
+    if t.data_ptr() % 16:
+        return False
+    return all(st * t.element_size() % 16 == 0
+               for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[str, Tuple[bool, bool, bool]]:
+    """The kernel for these operands and which of (q, k, v) the wrapper
+    copies to a contiguous tensor first. The route depends on the dtype
+    alone: bf16 -> "tensor_core", f32 -> "simt". A copy is a layout copy,
+    never a switch of kernel: an operand whose D axis is not unit-stride
+    is copied on both routes, and on the tensor-core route (whose loads
+    are 16-byte copies) so is one whose base or B/H/S strides are not
+    16-byte aligned."""
+    if q.dtype == torch.bfloat16:
+        return "tensor_core", tuple(t.stride(-1) != 1 or not _aligned16(t)
+                                    for t in (q, k, v))
+    return "simt", tuple(t.stride(-1) != 1 for t in (q, k, v))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,14 +76,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = flash_attention_cuda(q, k, v, causal=causal, window=int(window),
-                               q_offset=int(q_offset))
+    route, copies = flash_route(q, k, v)
+    q, k, v = (t.contiguous() if c else t for t, c in zip((q, k, v), copies))
+    out = flash_attention_cuda(q, k, v, route=route, causal=causal,
+                               window=int(window), q_offset=int(q_offset))
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
+    flash_attention.layout_copies += sum(copies)
     return out
 
 
-# kernel launches made through the wrapper (the CPU route counts none)
-flash_attention.launches = 0
+def reset_counts() -> None:
+    """Set every count of the wrapper to 0."""
+    flash_attention.launches = 0
+    flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+    flash_attention.layout_copies = 0
 
-__all__ = ["flash_attention", "attention_ref"]
+
+# kernel launches made through the wrapper, in all and by route, and the
+# operands it copied to a contiguous layout first (the CPU route counts none)
+reset_counts()
+
+__all__ = ["flash_attention", "flash_route", "attention_ref", "reset_counts"]
