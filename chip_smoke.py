@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
+It builds the port's four CUDA sources from ``src/repro_torch/kernels/csrc``
 (one nvcc each, in parallel) and drives both of the port's paths.
 
-The mapper: it holds ``clause_eval`` and ``flip_update`` against their
-plain torch versions on the card (bit-exact: the kernels count integers),
-times them, checks the walk's two engines against each other, and then
-drives ``repro_torch.compile`` on the 11-kernel suite at 4x4 with a sweep
-width of 4, with the default solver and with the GPU walk as the solver.
+The mapper: it holds ``clause_eval``, ``flip_update`` and ``walk_chunk``
+(the persistent kernel that runs whole probSAT steps of a chunk; two
+routes, the counts in shared or in device memory) against their plain
+torch versions on the card (bit-exact: the kernels count integers and the
+walk's float noise is computed alike), times them, checks the walk's two
+engines against each other, times a walk chunk against its host wall
+time, and then drives ``repro_torch.compile`` on the 11-kernel suite at
+4x4 with a sweep width of 4, with the default solver and with the GPU
+walk as the solver (one ``walk_chunk`` launch per chunk).
 
 The LM: it holds ``flash_attention`` (both of its kernels: bf16 on the
 tensor cores, f32 on the SIMT kernel) and ``ssd_scan`` against their plain
@@ -62,6 +66,13 @@ FLASH_NOTE = ("route by dtype: bf16 -> tensor_core (flash_fwd_kernel_wgmma: "
               "every served prefill launch; f32 -> simt (flash_fwd_kernel, "
               "f32 FMAs)")
 SSD_TOL = 2e-3
+# chunks of 177 steps that walk_chunk_phase walks to reach a solved chain
+SOLVE_CHUNKS = 200
+# keys of a kernel's row that the kernels line carries beside the contract's
+KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
+                 "bound_ms_per_step", "main_path_steps",
+                 "main_path_route_launches", "step_wall_ms",
+                 "step_device_busy_share", "earlier")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
@@ -148,6 +159,20 @@ def flip_update_bound_ms(occ_c):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def walk_chunk_bound_ms(packed, B, steps):
+    """Least time for a chunk of ``steps`` walk steps: the pack (int32
+    clause table, int32 + bool occurrence lists) read once and the state
+    (counts, assignments) read and written once, against K*B*(C + L*O + O)
+    integer operations a step (the clause scan, the break counts over
+    every literal slot's occurrences, the flip's update)."""
+    K, C, L = packed.cvars.shape
+    V1, O = packed.ovars.shape[1:]
+    nbytes = K * C * L * 4 + K * V1 * O * 5 + 2 * (K * B * C * 4 + K * B * V1)
+    ops = steps * K * B * (C + L * O + O)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def kernel_phase(torch):
     """Parity (bit-exact) and times of every kernel at the main path's
     shapes (the 4x4 window, 24 chains) and at the 8x8 window."""
@@ -157,6 +182,7 @@ def kernel_phase(torch):
         true_counts, true_counts_ref, true_counts_window,
         true_counts_window_ref)
     from repro_torch.kernels.flip_update import flip_update, flip_update_ref
+    from repro_torch.kernels.flip_update.ref import walk_noise
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -256,10 +282,8 @@ def kernel_phase(torch):
     tc = true_counts_window(packed.cvars, packed.csign, assign)
     err = 0
     steps_args = None
-    for _ in range(1000):
-        g1 = torch.rand((K, 24, packed.cvars.shape[1]), generator=gen,
-                        device=dev)
-        g2 = W._gumbel(gen, (K, 24, packed.cvars.shape[2]), dev)
+    for step in range(1000):
+        g1, g2 = walk_noise(W.walk_key(0), step, tc, packed.cvars.shape[2])
         v, nv = W._pick_flip(packed.cvars, occ, assign, tc, g1, g2, 2.3)
         vl = v.long()
         steps_args = (v, packed.ovars[kk, vl], packed.osign[kk, vl], nv)
@@ -292,6 +316,136 @@ def kernel_phase(torch):
     return out, windows
 
 
+def _walk_parity(torch, packed, assign, tc, key, step0, n, what):
+    """walk_chunk (kernel, in place on copies) == walk_chunk_ref on the
+    same state, bit for bit; the carried counts equal a fresh recount.
+    Returns the kernel's (assign, tc)."""
+    from repro_torch.kernels.clause_eval import true_counts_window_ref
+    from repro_torch.kernels.flip_update import walk_chunk, walk_chunk_ref
+    args = (packed.cvars, packed.ovars, packed.osign)
+    want = walk_chunk_ref(*args, assign, tc, key, step0, n, 2.3)
+    got = walk_chunk(*args, assign.clone(), tc.clone(), key, step0, n, 2.3)
+    torch.cuda.synchronize()
+    bad_a = int((got[0] != want[0]).sum())
+    bad_t = int((got[1] != want[1]).sum())
+    fresh = true_counts_window_ref(packed.cvars, packed.csign, got[0])
+    if bad_a or bad_t or not torch.equal(got[1], fresh):
+        raise AssertionError(f"walk_chunk != walk_chunk_ref ({what}, {n} "
+                             f"steps): {bad_a} assignment bytes, {bad_t} "
+                             f"counts differ; recount equal "
+                             f"{torch.equal(got[1], fresh)}")
+    return got
+
+
+def walk_chunk_phase(torch, windows):
+    """walk_chunk against walk_chunk_ref on the card, bit for bit: chunks
+    of 1, 7 and 177 steps at the 4x4 window (shared route; 177 is the
+    main path's chunk there), 8 steps at the 8x8 window with 24 chains
+    (global route), and 9 steps on a 4x4 state where a chain is solved.
+    Then the kernel's time per chunk and per step beside the bound, the
+    plain version's time, and the 8x8 times at 24 and 256 chains."""
+    from repro_torch.core.sat import walksat_torch as W
+    from repro_torch.kernels.clause_eval import true_counts_window
+    from repro_torch.kernels.flip_update import (walk_chunk, walk_chunk_ref,
+                                                 walk_route)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    key = W.walk_key(6)
+    packed = windows["4x4"]
+    K, C, L = packed.cvars.shape
+    V1 = packed.n_vars + 1
+    B = 24
+    before = dict(walk_chunk.route_launches)
+    assign = torch.rand((K, B, V1), generator=gen, device=dev) < 0.5
+    tc = true_counts_window(packed.cvars, packed.csign, assign)
+    step = 0
+    for n in (1, 7, 177):
+        assign, tc = _walk_parity(torch, packed, assign, tc, key, step, n,
+                                  "4x4")
+        step += n
+    # walk on until a chain is solved, then hold the kernel there
+    for _ in range(SOLVE_CHUNKS):
+        if bool((~(tc == 0).any(-1)).any()):
+            break
+        assign, tc = walk_chunk(packed.cvars, packed.ovars, packed.osign,
+                                assign, tc, key, step, 177, 2.3)
+        step += 177
+    solved = (~(tc == 0).any(-1))
+    n_solved = int(solved.sum())
+    if not n_solved:
+        raise AssertionError(f"no chain of the 4x4 window solved in "
+                             f"{SOLVE_CHUNKS} chunks")
+    got = _walk_parity(torch, packed, assign, tc, key, step, 9,
+                       "4x4, solved chains")
+    want0 = assign.clone()
+    want0[..., 0] ^= True                      # 9 steps: an odd count
+    if not (torch.equal(got[1][solved], tc[solved])
+            and torch.equal(got[0][solved], want0[solved])):
+        raise AssertionError("a solved chain changed more than its dummy "
+                             "variable")
+    p8 = windows["8x8"]
+    K8, C8, L8 = p8.cvars.shape
+    a8 = torch.rand((K8, B, p8.n_vars + 1), generator=gen, device=dev) < 0.5
+    t8 = true_counts_window(p8.cvars, p8.csign, a8)
+    _walk_parity(torch, p8, a8, t8, key, 0, 8, "8x8")
+    routes = {r: n - before[r] for r, n in walk_chunk.route_launches.items()}
+    if walk_route(C, L, V1) != "shared" or \
+            walk_route(C8, L8, p8.n_vars + 1) != "global" or \
+            routes["global"] != 1 or not routes["shared"]:
+        raise AssertionError(f"walk_chunk routes {routes}; expected the 4x4 "
+                             f"window shared, the 8x8 global")
+    emit("parity_walk_chunk", chunks_4x4=[1, 7, 177, 9], chunk_8x8=8,
+         solved_chains=n_solved, route_launches=routes, bit_identical=True)
+
+    # times: a 177-step chunk from a walked 4x4 state, restored before
+    # each launch (outside the events)
+    a0 = torch.rand((K, B, V1), generator=gen, device=dev) < 0.5
+    t0 = true_counts_window(packed.cvars, packed.csign, a0)
+    a0, t0 = walk_chunk(packed.cvars, packed.ovars, packed.osign, a0, t0,
+                        key, 0, 354, 2.3)
+    n = 177
+    ta, tt = a0.clone(), t0.clone()
+
+    def restore():
+        ta.copy_(a0)
+        tt.copy_(t0)
+    ms = cuda_ms(torch, lambda: walk_chunk(
+        packed.cvars, packed.ovars, packed.osign, ta, tt, key, 354, n, 2.3),
+        flush=restore)
+    plain_ms = cuda_ms(torch, lambda: walk_chunk_ref(
+        packed.cvars, packed.ovars, packed.osign, a0, t0, key, 354, n, 2.3),
+        reps=3)
+    bound = walk_chunk_bound_ms(packed, B, n)
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound": bound, "max_abs_err": 0, "steps_per_launch": n,
+           "ms_per_step": ms / n, "bound_ms_per_step": bound[0] / n,
+           "plain_ms_per_step": plain_ms / n,
+           "shape": f"sha 4x4 K={K} C={C} L={L} V+1={V1} "
+                    f"O={packed.ovars.shape[2]} B={B}, {n} steps, route "
+                    f"shared"}
+    emit("walk_chunk", **row)
+    for b8 in (24, 256):
+        a8 = torch.rand((K8, b8, p8.n_vars + 1), generator=gen,
+                        device=dev) < 0.5
+        t8 = true_counts_window(p8.cvars, p8.csign, a8)
+        a80, t80 = a8.clone(), t8.clone()
+
+        def restore8():
+            a8.copy_(a80)
+            t8.copy_(t80)
+        ms8 = cuda_ms(torch, lambda: walk_chunk(
+            p8.cvars, p8.ovars, p8.osign, a8, t8, key, 0, 8, 2.3), reps=10,
+            flush=restore8)
+        b = walk_chunk_bound_ms(p8, b8, 8)
+        emit("walk_chunk", ms=ms8, ms_per_step=ms8 / 8, bound=b,
+             bound_ms_per_step=b[0] / 8, route="global",
+             shape=f"sha 8x8 K={K8} C={C8} L={L8} V+1={p8.n_vars + 1} "
+                   f"O={p8.ovars.shape[2]} B={b8}, 8 steps from random "
+                   f"assignments")
+        del a8, t8, a80, t80
+    return row
+
+
 def engine_phase(torch, packed_4x4):
     """Device engine == host engine on the 4x4 window; one device segment
     runs with CUDA's sync debug mode set to error, so any host sync in it
@@ -313,11 +467,11 @@ def engine_phase(torch, packed_4x4):
     gen = torch.Generator(device=dev).manual_seed(1)
     assign0 = torch.rand((4, 24, packed_4x4.n_vars + 1), generator=gen,
                          device=dev) < 0.5
-    occ = W.occ_tables(packed_4x4.ovars, packed_4x4.osign)
     st = W._initial_state(packed_4x4, assign0)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
-    st = W._device_segment(packed_4x4, occ, st, [256, 512], 2.3, gen)
+    st = W._device_segment(packed_4x4, st, [177, 177, 177, 177], 0, 2.3,
+                           W.walk_key(1))
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     emit("engines", equal=True, statuses=[s for s, _ in rd],
@@ -325,40 +479,49 @@ def engine_phase(torch, packed_4x4):
          segment_without_sync=True)
 
 
-def walk_step_phase(torch, packed_4x4, n=16, reps=5):
+def walk_step_phase(torch, packed_4x4, reps=5):
     """Where a walk step's time goes on the 4x4 window: the host's wall
-    time for ``n`` steps (ending in a synchronize) against the device's
-    time for the same steps queued behind a sleep kernel, so that the
-    device runs them back to back. Their ratio is the device's busy share
-    of a step; the rest is the host issuing launches."""
+    time for a chunk of ``n`` steps (one walk_chunk launch, ending in a
+    synchronize) against the device's time for the same chunk queued
+    behind a sleep kernel. Their ratio is the device's busy share of a
+    step; the rest is the host issuing the launch and waiting on it. At
+    n = 16 and at the main path's 177."""
     from repro_torch.core.sat import walksat_torch as W
     dev = packed_4x4.cvars.device
     gen = torch.Generator(device=dev).manual_seed(2)
-    occ = W.occ_tables(packed_4x4.ovars, packed_4x4.osign)
+    key = W.walk_key(2)
     assign = torch.rand((4, 24, packed_4x4.n_vars + 1), generator=gen,
                         device=dev) < 0.5
     tc = W.true_counts_window(packed_4x4.cvars, packed_4x4.csign, assign)
-    assign, tc = W._window_chunk(packed_4x4, occ, assign, tc, n, 2.3, gen)
-    walls, devs = [], []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        assign, tc = W._window_chunk(packed_4x4, occ, assign, tc, n, 2.3,
-                                     gen)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        s, e = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        torch.cuda._sleep(400_000_000)
-        s.record()
-        assign, tc = W._window_chunk(packed_4x4, occ, assign, tc, n, 2.3,
-                                     gen)
-        e.record()
-        torch.cuda.synchronize()
-        devs.append(s.elapsed_time(e))
-    wall, busy = statistics.median(walls), statistics.median(devs)
-    emit("walk_step", steps=n, step_wall_ms=wall / n,
-         step_device_ms=busy / n, device_busy_share=busy / wall)
+    step = 0
+    assign, tc = W._window_chunk(packed_4x4, assign, tc, 177, 2.3, key, step)
+    step += 177
+    out = {}
+    for n in (16, 177):
+        walls, devs = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            assign, tc = W._window_chunk(packed_4x4, assign, tc, n, 2.3, key,
+                                         step)
+            step += n
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            torch.cuda._sleep(400_000_000)
+            s.record()
+            assign, tc = W._window_chunk(packed_4x4, assign, tc, n, 2.3, key,
+                                         step)
+            step += n
+            e.record()
+            torch.cuda.synchronize()
+            devs.append(s.elapsed_time(e))
+        wall, busy = statistics.median(walls), statistics.median(devs)
+        out[n] = {"step_wall_ms": wall / n, "step_device_ms": busy / n,
+                  "device_busy_share": busy / wall}
+        emit("walk_step", steps=n, **out[n])
+    return out
 
 
 def main_path(torch):
@@ -367,12 +530,13 @@ def main_path(torch):
     from repro_torch.core import suite
     from repro_torch.core.sat import portfolio
     from repro_torch.kernels.clause_eval import true_counts, true_counts_window
-    from repro_torch.kernels.flip_update import flip_update
+    from repro_torch.kernels.flip_update import (flip_update, reset_counts,
+                                                 walk_chunk)
     if repro_torch.get_default_device() != "cuda":
         raise AssertionError("the port must default to cuda")
-    counters = (true_counts_window, true_counts, flip_update)
-    for f in counters:
+    for f in (true_counts_window, true_counts):
         f.launches = 0
+    reset_counts()
     for name in suite.names():
         t0 = time.perf_counter()
         res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
@@ -386,12 +550,12 @@ def main_path(torch):
     walk_s = 0.0
     walk_steps = 0
     for name in WALKSAT_KERNELS:
-        before = flip_update.launches
+        before = walk_chunk.steps
         t0 = time.perf_counter()
         res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
                                  sweep_width=4, solver="walksat"))
         secs = time.perf_counter() - t0
-        steps = flip_update.launches - before
+        steps = walk_chunk.steps - before
         win = [a for a in res.attempts if a.ii == res.ii]
         if not res.success or not win or win[0].via != "walksat":
             raise AssertionError(f"{name}: the walk did not map it")
@@ -403,17 +567,22 @@ def main_path(torch):
              flips_per_s=steps * 4 * 24 / secs)
     launches = {"clause_eval_window": true_counts_window.launches,
                 "clause_eval": true_counts.launches,
-                "flip_update": flip_update.launches}
-    if not (launches["clause_eval_window"] and launches["flip_update"]):
+                "flip_update": flip_update.launches,
+                "walk_chunk": walk_chunk.launches}
+    if not (launches["clause_eval_window"] and launches["walk_chunk"]):
         raise AssertionError(f"main path did not launch its kernels: "
                              f"{launches}")
     if portfolio.racer_failures():
         raise AssertionError(f"{portfolio.racer_failures()} walk racer(s) "
                              f"failed")
     emit("main_path", launches=launches, racer_failures=0,
+         walk_chunk_route_launches=walk_chunk.route_launches,
+         walk_chunk_steps=walk_chunk.steps,
          walk_seconds=walk_s, walk_steps=walk_steps,
+         steps_per_s=walk_steps / walk_s,
          flips_per_s=walk_steps * 4 * 24 / walk_s)
-    return launches
+    return launches, {"steps": walk_chunk.steps,
+                      "route_launches": dict(walk_chunk.route_launches)}
 
 
 def _close(got, want, atol, rtol):
@@ -683,11 +852,12 @@ def lm_kernel_phase(torch):
 def _counters():
     from repro_torch.kernels.clause_eval import true_counts, true_counts_window
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flip_update import flip_update
+    from repro_torch.kernels.flip_update import flip_update, walk_chunk
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"clause_eval_window": true_counts_window,
             "clause_eval": true_counts, "flip_update": flip_update,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+            "walk_chunk": walk_chunk, "flash_attention": flash_attention,
+            "ssd_scan": ssd_scan}
 
 
 def serve_phase(torch):
@@ -905,11 +1075,20 @@ def main() -> int:
          ptxas={n: [ln for ln in log.splitlines() if "registers" in ln
                     or "smem" in ln] for n, (_, log) in report.items()})
     times, windows = kernel_phase(torch)
+    times["walk_chunk"] = walk_chunk_phase(torch, windows)
     engine_phase(torch, windows["4x4"])
-    walk_step_phase(torch, windows["4x4"])
+    step = walk_step_phase(torch, windows["4x4"])
     del windows
     torch.cuda.empty_cache()
-    launches = main_path(torch)
+    launches, walk = main_path(torch)
+    times["walk_chunk"].update(
+        main_path_steps=walk["steps"],
+        main_path_route_launches=walk["route_launches"],
+        step_wall_ms=step[177]["step_wall_ms"],
+        step_device_busy_share=step[177]["device_busy_share"],
+        earlier={"design": "flip_update: one launch per walk step, beside "
+                           "~30 torch launches for the pick",
+                 "ms_per_step": times["flip_update"]["ms"]})
     torch.cuda.empty_cache()
     lm_times = lm_kernel_phase(torch)
     flash_edge_phase(torch)
@@ -930,6 +1109,8 @@ def main() -> int:
              "src/repro/kernels/clause_eval/kernel.py:33"),
             ("flip_update", "flip_update.cu",
              "src/repro/kernels/flip_update/kernel.py:47"),
+            ("walk_chunk", "flip_update.cu",
+             "src/repro/kernels/flip_update/kernel.py:47"),
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:77"),
             ("ssd_scan", "ssd_scan.cu",
@@ -944,7 +1125,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
             "shape": t["shape"],
-            **({"note": t["note"]} if "note" in t else {})})
+            **{k: v for k, v in t.items() if k in KERNEL_EXTRAS}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

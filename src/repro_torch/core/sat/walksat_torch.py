@@ -20,14 +20,19 @@ Two engines drive the chunked walk, bit-compatible for a fixed seed:
     chunk. Kept as the oracle of the device engine and selectable via
     ``REPRO_WALKSAT_ENGINE=host``.
 
-Both engines share one inner step (:func:`_pick_flip` plus the
-``flip_update`` kernel) and draw their noise from one ``torch.Generator``
-in the same order, so they return identical results. The step samples as
-``jax.random.categorical`` does — ``argmax(logits + gumbel)`` — with the
-Gumbel noise an explicit input, so given the same noise it picks exactly
-what the JAX step picks. True counts come from the ``clause_eval`` kernel
-and the flip + incremental count update from the ``flip_update`` kernel;
-on CPU tensors both take their plain torch versions.
+Both engines walk each chunk with one ``walk_chunk`` kernel launch (pick,
+flip and true-count update for every step of every chain; on CPU tensors
+its plain torch version) and so return identical results. The step's
+noise is Philox4x32-10 at counters that name the walk's global step, the
+chain and the clause or literal slot, under a key derived from the seed
+(:func:`walk_key`): it does not depend on where chunks end, and the kernel
+draws it on the card without a host round. A ``torch.Generator`` seeded
+with the same seed draws only the initial assignments. The step samples
+as ``jax.random.categorical`` does — ``argmax(logits + gumbel)`` — with
+the noise an explicit input of the pick (``_pick_flip``), so given the
+same noise it picks exactly what the JAX step picks. True counts come
+from the ``clause_eval`` kernel at the start of a walk (and of every
+chunk on the host engine).
 
 This solver is incomplete: it can certify SAT but returns UNKNOWN instead of
 UNSAT — the Fig. 3 loop then falls back to CDCL for the UNSAT proof.
@@ -42,7 +47,10 @@ import torch
 
 from ...device import resolve_device
 from ...kernels.clause_eval import true_counts_window
-from ...kernels.flip_update import flip_update
+from ...kernels.flip_update import walk_chunk
+# the step's pick, held to the JAX package's by the tests
+from ...kernels.flip_update.ref import occ_tables  # noqa: F401
+from ...kernels.flip_update.ref import pick_flip_ref as _pick_flip  # noqa: F401
 from ..cnf import CNF
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -231,104 +239,25 @@ def _next_chunk(prev: int, cap: int, remaining: int) -> int:
 
 # ------------------------------------------------------------ probSAT step
 
-def _gumbel(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """Standard Gumbel noise, float32, as ``jax.random.gumbel`` draws it:
-    ``-log(-log(u))`` with ``u`` uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=gen, device=device)
-    u = u.clamp_min_(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+def walk_key(seed: int) -> Tuple[int, int]:
+    """The walk's Philox key: the low and high 32 bits of ``seed`` mixed
+    with fixed constants, on the host, so that starting a walk reads
+    nothing from the device."""
+    seed &= (1 << 64) - 1
+    return ((seed & 0xFFFFFFFF) ^ 0x2545F491,
+            ((seed >> 32) & 0xFFFFFFFF) ^ 0x9E3779B9)
 
 
-class OccTables(NamedTuple):
-    """The occurrence lists recast for the break-count gather, made once
-    per window: ``idx`` [K,V+1,O] int64 clause ids with padding sent to
-    clause 0, ``sign`` [K,V+1,O] int8 literal signs with padding 2, a value
-    no assignment bit equals, so padded slots never count as support."""
-    idx: torch.Tensor
-    sign: torch.Tensor
-
-
-def occ_tables(ovars: torch.Tensor, osign: torch.Tensor) -> OccTables:
-    valid = ovars >= 0
-    return OccTables(torch.where(valid, ovars, 0).long(),
-                     torch.where(valid, osign.to(torch.int8), 2).to(
-                         torch.int8))
-
-
-def _pick_flip(cvars: torch.Tensor, occ: OccTables, assign: torch.Tensor,
-               tc: torch.Tensor, g_clause: torch.Tensor, g_var: torch.Tensor,
-               cb: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One probSAT variable pick per chain, for a window of K CNFs.
-
-    cvars [K,C,L] int32; ``occ`` from :func:`occ_tables`; assign [K,B,V+1]
-    bool; tc [K,B,C] int32; g_clause [K,B,C] and g_var [K,B,L] float32
-    Gumbel noise. Returns (v_flip [K,B] int32 — var 0, the dummy, for chains
-    that are already solved — and new_val [K,B] bool).
-
-    Given the same noise it picks what the JAX package's ``_pick_flip_one``
-    picks with ``jax.random.categorical`` (``argmax(logits + gumbel)``):
-    the same -1e30 mask, the same float32 ``-cb * log1p(brk)`` weights and
-    argmax's first-index tie rule. The clause logits take only the values
-    0 and -1e30, and -1e30 + g rounds to -1e30 for any finite noise g, so
-    ``where(unsat, g, -1e30)`` equals ``logits + g`` bit for bit, and the
-    clause pick depends only on the order of ``g_clause``: the walk passes
-    the uniform draws themselves there (the same order as their Gumbel
-    transform), which spares the two logarithms over [K,B,C].
-    """
-    K, B, _ = assign.shape
-    L = cvars.shape[2]
-    O = occ.idx.shape[2]
-    unsat = tc == 0                                           # [K,B,C]
-    # pick a random unsat clause per chain (clause 0, satisfied, if none)
-    cidx = torch.argmax(torch.where(unsat, g_clause, -1e30), -1)  # [K,B]
-    any_unsat = torch.gather(unsat, 2, cidx[..., None])[..., 0]
-    vs = torch.gather(cvars, 1, cidx[..., None].expand(K, B, L))  # [K,B,L]
-    vsl = vs.long()
-    # break count per candidate var: clauses where v is the sole support
-    kk = torch.arange(K, device=assign.device)[:, None, None]
-    occ_i = occ.idx[kk, vsl]                                  # [K,B,L,O]
-    occ_s = occ.sign[kk, vsl]
-    tc_at = torch.gather(tc, 2, occ_i.reshape(K, B, L * O)).reshape(
-        K, B, L, O)
-    a_at = torch.gather(assign, 2, vsl).to(torch.int8)        # [K,B,L]
-    supports = occ_s == a_at[..., None]       # var currently satisfies c'
-    brk = (supports & (tc_at == 1)).sum(-1)                   # [K,B,L]
-    # probSAT polynomial heuristic: p ∝ (1 + brk)^-cb
-    w = torch.where(vs > 0, -cb * torch.log1p(brk.float()), -1e30)
-    pick = torch.argmax(g_var + w, -1)                        # [K,B]
-    v_flip = torch.gather(vs, 2, pick[..., None])[..., 0]
-    v_flip = torch.where(any_unsat, v_flip, 0)  # flip dummy var 0 if solved
-    new_val = ~torch.gather(assign, 2, v_flip.long()[..., None])[..., 0]
-    return v_flip, new_val
-
-
-def _window_chunk(packed: PackedCNF, occ: OccTables, assign: torch.Tensor,
-                  tc: torch.Tensor, n_steps: int, cb: float,
-                  gen: torch.Generator, stop=None,
+def _window_chunk(packed: PackedCNF, assign: torch.Tensor, tc: torch.Tensor,
+                  n_steps: int, cb: float, key: Tuple[int, int], step0: int,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Walk all K CNFs of the window for ``n_steps`` probSAT steps. Both
-    engines run exactly this, so they consume the generator identically.
-    ``stop()``, a host-side callable, is asked before every step; a stopped
-    walk returns early (only a cancelled walk stops, so its result is not
-    compared with anything).
+    """Walk all K CNFs of the window for steps ``step0 .. step0 + n_steps
+    - 1``: one ``walk_chunk`` launch. Both engines run exactly this.
 
     assign [K,B,V+1] bool; tc [K,B,C] int32. On a CUDA device ``assign``
-    and ``tc`` are updated in place (the ``flip_update`` kernel)."""
-    K, B, _ = assign.shape
-    C, L = packed.cvars.shape[1], packed.cvars.shape[2]
-    dev = assign.device
-    kk = torch.arange(K, device=dev)[:, None]
-    for _ in range(n_steps):
-        if stop is not None and stop():
-            break
-        g_clause = torch.rand((K, B, C), generator=gen, device=dev)
-        g_var = _gumbel(gen, (K, B, L), dev)
-        v_flip, new_val = _pick_flip(packed.cvars, occ, assign, tc,
-                                     g_clause, g_var, cb)
-        vfl = v_flip.long()
-        assign, tc = flip_update(assign, tc, v_flip, packed.ovars[kk, vfl],
-                                 packed.osign[kk, vfl], new_val)
-    return assign, tc
+    and ``tc`` are updated in place."""
+    return walk_chunk(packed.cvars, packed.ovars, packed.osign, assign, tc,
+                      key, step0, n_steps, cb)
 
 
 def _init_assign(gen: torch.Generator, batch: int, n_vars_padded: int,
@@ -363,8 +292,8 @@ def _maybe_shard_window(assign0: torch.Tensor) -> torch.Tensor:
 
 
 def _start(cnfs, live, packed, inits, seed, batch):
-    """Generator and initial assignments [K,B,V+1] of one walk — the first
-    draws of the stream, made the same way by both engines."""
+    """Initial assignments [K,B,V+1] of one walk, drawn from a generator
+    seeded with ``seed``, the same way by both engines."""
     dev = packed.cvars.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -372,7 +301,7 @@ def _start(cnfs, live, packed, inits, seed, batch):
         _init_assign(gen, batch, packed.n_vars,
                      inits[live[j]] if inits is not None else None, dev)
         for j in range(len(live))])
-    return gen, _maybe_shard_window(assign0)
+    return _maybe_shard_window(assign0)
 
 
 def _model(row: torch.Tensor, cnf: CNF) -> List[bool]:
@@ -412,21 +341,26 @@ def _initial_state(packed: PackedCNF, assign0: torch.Tensor) -> _WalkState:
         torch.zeros((K, v1), dtype=torch.bool, device=dev))
 
 
-def _device_segment(packed: PackedCNF, occ: OccTables, st: _WalkState,
-                    chunks: List[int], cb: float, gen: torch.Generator,
+def _device_segment(packed: PackedCNF, st: _WalkState, chunks: List[int],
+                    step0: int, cb: float, key: Tuple[int, int],
                     stop=None) -> _WalkState:
-    """Walk the planned ``chunks`` (host-side lengths) and fold each
-    chunk's outcome into the per-candidate state. Only kernels are
-    enqueued: nothing here reads the device, so the host runs ahead of the
-    card for the whole segment. Chunks after every candidate is solved or
-    skipped change nothing the caller reads (solved flags latch, near-miss
-    updates are masked), so a segment need not stop early."""
+    """Walk the planned ``chunks`` (host-side lengths, the first starting
+    at global step ``step0``) and fold each chunk's outcome into the
+    per-candidate state. Only kernels are enqueued: nothing here reads the
+    device, so the host runs ahead of the card for the whole segment.
+    ``stop()``, a host-side callable, is asked before every chunk; a
+    stopped walk returns early (only a cancelled walk stops, so its result
+    is not compared with anything). Chunks after every candidate is solved
+    or skipped change nothing the caller reads (solved flags latch,
+    near-miss updates are masked), so a segment need not stop early."""
     assign, tc, solved, solved_assign, skip, best_unsat, best_assign = st
     K = assign.shape[0]
     ks = torch.arange(K, device=assign.device)
     for chunk in chunks:
-        assign, tc = _window_chunk(packed, occ, assign, tc, chunk, cb, gen,
-                                   stop)
+        if stop is not None and stop():
+            break
+        assign, tc = _window_chunk(packed, assign, tc, chunk, cb, key, step0)
+        step0 += chunk
         unsat = tc == 0
         chain_ok = ~unsat.any(-1)                          # [K,B]
         fresh = chain_ok.any(-1) & ~solved
@@ -452,8 +386,8 @@ def _solve_window_device(cnfs, live, packed, results, *, seed, steps, batch,
                          on_near_miss):
     from . import SAT
     K = len(live)
-    gen, assign0 = _start(cnfs, live, packed, inits, seed, batch)
-    occ = occ_tables(packed.ovars, packed.osign)
+    assign0 = _start(cnfs, live, packed, inits, seed, batch)
+    key = walk_key(seed)
     dev = assign0.device
     cap, chunk = _chunk_plan(steps, packed.n_clauses)
     st = _initial_state(packed, assign0)
@@ -474,11 +408,12 @@ def _solve_window_device(cnfs, live, packed, results, *, seed, steps, batch,
                     break
                 st = st._replace(skip=torch.tensor(skip_host, device=dev))
         plan = []
+        step0 = done
         while len(plan) < _POLL_CHUNKS and done < steps:
             plan.append(chunk)
             done += chunk
             chunk = _next_chunk(chunk, cap, steps - done)
-        st = _device_segment(packed, occ, st, plan, cb, gen, stop)
+        st = _device_segment(packed, st, plan, step0, cb, key, stop)
         # the host waits only on the small status tensor; the walk state
         # (assignments, true counts, near-miss buffers) stays on the device
         solved_np = st.solved.cpu().numpy()
@@ -521,12 +456,13 @@ def _solve_window_host(cnfs, live, packed, results, *, seed, steps, batch,
                        cb, stop, should_skip, on_sat, inits, near_miss,
                        on_near_miss):
     """The per-chunk host loop (the reference engine): identical chunk
-    schedule, noise stream, and near-miss bookkeeping as the device engine,
-    with true counts recomputed and flags read after every chunk."""
+    schedule, noise, and near-miss bookkeeping as the device engine, with
+    true counts recomputed and flags read after every chunk; ``stop()`` is
+    asked before every chunk."""
     from . import SAT
     K = len(live)
-    gen, assign = _start(cnfs, live, packed, inits, seed, batch)
-    occ = occ_tables(packed.ovars, packed.osign)
+    assign = _start(cnfs, live, packed, inits, seed, batch)
+    key = walk_key(seed)
     cap, chunk = _chunk_plan(steps, packed.n_clauses)
     done = 0
     pending = set(range(K))
@@ -536,8 +472,7 @@ def _solve_window_host(cnfs, live, packed, results, *, seed, steps, batch,
         if stop is not None and stop():
             break
         tc = true_counts_window(packed.cvars, packed.csign, assign)
-        assign, tc = _window_chunk(packed, occ, assign, tc, chunk, cb, gen,
-                                   stop)
+        assign, tc = _window_chunk(packed, assign, tc, chunk, cb, key, done)
         solved_np = (~(tc == 0).any(-1)).cpu().numpy()        # [K, B]
         for j in sorted(pending):
             i = live[j]

@@ -1,2 +1,3 @@
-from .ops import flip_update  # noqa: F401
-from .ref import flip_update_ref  # noqa: F401
+from .ops import (flip_update, reset_counts, walk_chunk,  # noqa: F401
+                  walk_route)
+from .ref import flip_update_ref, walk_chunk_ref  # noqa: F401
