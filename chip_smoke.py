@@ -6,19 +6,25 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's four CUDA sources from ``src/repro_torch/kernels/csrc``
 (one nvcc each, in parallel) and drives both of the port's paths.
 
-The mapper: it holds ``clause_eval``, ``flip_update`` and ``walk_chunk``
-(the persistent kernel that runs whole probSAT steps of a chunk; two
-routes, the counts in shared or in device memory) against their plain
-torch versions on the card (bit-exact: the kernels count integers and the
-walk's float noise is computed alike), times them, checks the walk's two
-engines against each other, times a walk chunk against its host wall
-time, and then drives ``repro_torch.compile`` on the 11-kernel suite at
-4x4 with a sweep width of 4, with the default solver and with the GPU
-walk as the solver (one ``walk_chunk`` launch per chunk).
+The mapper: it holds ``clause_eval`` (two routes: each row read up to
+its length ``clen``, as the walk calls it, or whole rows), ``flip_update``
+and ``walk_chunk`` (the persistent kernel that runs whole probSAT steps of
+a chunk; two routes, the counts in shared or in device memory) against
+their plain torch versions on the card (bit-exact: the kernels count
+integers and the walk's float noise is computed alike), times them (each
+``clause_eval`` route beside both of its bounds, and its two launches'
+device times), checks the walk's two engines against each other, times a
+walk chunk against its host wall time, and then drives
+``repro_torch.compile`` on the 11-kernel suite at 4x4 with a sweep width
+of 4, with the default solver and with the GPU walk as the solver (one
+``walk_chunk`` launch per chunk, every ``clause_eval`` launch on the clen
+route).
 
 The LM: it holds ``flash_attention`` (both of its kernels: bf16 on the
-tensor cores, f32 on the SIMT kernel) and ``ssd_scan`` against their plain
-versions at hymba_1_5b's shapes, and the bf16 attention also at
+tensor cores, f32 on the SIMT kernel) and ``ssd_scan`` (three launches:
+chunk states, the pass over them, chunk outputs; each one's device time is
+printed) against their plain versions at hymba_1_5b's shapes, and the bf16
+attention also at
 minitron_8b's (D = 128), and times them beside the library call where
 there is one; both attention kernels are also held on small cases at every
 D that reach what those shapes do not (tails, q_offset, narrow windows,
@@ -66,13 +72,17 @@ FLASH_NOTE = ("route by dtype: bf16 -> tensor_core (flash_fwd_kernel_wgmma: "
               "every served prefill launch; f32 -> simt (flash_fwd_kernel, "
               "f32 FMAs)")
 SSD_TOL = 2e-3
+CLAUSE_NOTE = ("clen route (the walk's): each row's slots [0, clen) are "
+               "read; no_clen_ms and bound_no_clen are the full-rows route, "
+               "which reads every slot of the padded [K,C,L] table")
 # chunks of 177 steps that walk_chunk_phase walks to reach a solved chain
 SOLVE_CHUNKS = 200
 # keys of a kernel's row that the kernels line carries beside the contract's
 KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "bound_ms_per_step", "main_path_steps",
                  "main_path_route_launches", "step_wall_ms",
-                 "step_device_busy_share", "earlier")
+                 "step_device_busy_share", "earlier", "no_clen_ms",
+                 "bound_no_clen", "phase_ms")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
@@ -138,16 +148,49 @@ def sha_window(size, k=4):
     return [sess.encode(ii).cnf for ii in range(mii, mii + k)]
 
 
-def clause_eval_bound_ms(cvars, v1, B):
-    """Least time for the window's counts: the clause tables (int32 var +
-    sign byte per literal slot) and assignments read once, the counts
-    written once; one compare per (chain, literal) that is not padding."""
+def clause_eval_bound_ms(cvars, v1, B, clen=None):
+    """Least time for the window's counts: the clause slots read (int32 var
+    + sign byte each) and the assignments read once, the counts written
+    once, against one compare per (chain, literal) that is not padding.
+    With ``clen`` (the clen route) the slots are each row's [0, clen) and
+    clen itself is read; without it (the full-rows route) every slot of
+    the padded [K,C,L] table."""
     K, C, L = cvars.shape
-    nbytes = K * C * L * 5 + K * B * v1 + K * B * C * 4
+    table = K * C * L * 5 if clen is None else \
+        int(clen.clamp(0, L).sum()) * 5 + K * C * 4
+    nbytes = table + K * B * v1 + K * B * C * 4
     ops = int((cvars > 0).sum()) * B
     return max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3, \
         "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S \
         else "operations"
+
+
+def device_phases(torch, fn, reps=5):
+    """Device time of each kernel that ``fn`` launches once per call, ms
+    per launch, from torch.profiler over ``reps`` calls after a warm-up
+    (averaged over the launches the trace holds, as a trace may drop
+    some); names without their namespace and arguments."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):          # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type != cuda:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].replace("void ", "")
+            out[name] = us / 1e3 / e.count
+        if out:
+            return out
+    raise AssertionError("torch.profiler recorded no device kernels")
 
 
 def flip_update_bound_ms(occ_c):
@@ -191,18 +234,32 @@ def kernel_phase(torch):
         flush_buf.zero_()
 
     out = {}
-    # random tables, 0-padding anywhere in a row
-    cv = torch.randint(0, 301, (3, 5000, 7), generator=gen, device=dev,
-                       dtype=torch.int32)
-    cs = torch.rand((3, 5000, 7), generator=gen, device=dev) < 0.5
-    a = torch.rand((3, 24, 301), generator=gen, device=dev) < 0.5
-    if not torch.equal(true_counts_window(cv, cs, a),
-                       true_counts_window_ref(cv, cs, a)):
-        raise AssertionError("clause_eval window != plain on random tables")
-    if not torch.equal(true_counts(cv[0], cs[0], a[0]),
-                       true_counts_ref(cv[0], cs[0], a[0])):
-        raise AssertionError("clause_eval K=1 != plain on random tables")
-    emit("parity_random", clause_eval_window=True, clause_eval=True)
+    # random tables: zeros anywhere in a row (the full-rows route), and
+    # zeros only at or past a random clen (the clen route; some clen past
+    # L, which the kernel clamps); L = 7 (a thread a row) and L = 40 (a warp
+    # a row), 24 chains and 300 (two chain tiles)
+    for K, C, L, V, B in ((3, 5000, 7, 300, 24), (2, 3000, 40, 300, 300)):
+        cv = torch.randint(0, V + 1, (K, C, L), generator=gen, device=dev,
+                           dtype=torch.int32)
+        cs = torch.rand((K, C, L), generator=gen, device=dev) < 0.5
+        a = torch.rand((K, B, V + 1), generator=gen, device=dev) < 0.5
+        clen = torch.randint(0, L + 3, (K, C), generator=gen, device=dev,
+                             dtype=torch.int32)
+        cvc = torch.where(torch.arange(L, device=dev) < clen[..., None],
+                          cv, 0)
+        for what, table, cl in (("full rows", cv, None), ("clen", cvc, clen)):
+            if not torch.equal(true_counts_window(table, cs, a, cl),
+                               true_counts_window_ref(table, cs, a)):
+                raise AssertionError(f"clause_eval window != plain on random "
+                                     f"tables ({what}, L={L}, B={B})")
+            if not torch.equal(
+                    true_counts(table[0], cs[0], a[0],
+                                None if cl is None else cl[0]),
+                    true_counts_ref(table[0], cs[0], a[0])):
+                raise AssertionError(f"clause_eval K=1 != plain on random "
+                                     f"tables ({what}, L={L}, B={B})")
+    emit("parity_random", clause_eval_window=True, clause_eval=True,
+         routes=["full_rows", "clen"], L=[7, 40], B=[24, 300])
 
     windows = {}
     for size, batches in (("4x4", (24,)), ("8x8", (24, 256))):
@@ -210,46 +267,66 @@ def kernel_phase(torch):
         packed = window_from_numpy(W.pack_cnf_window_np(sha_window(size)),
                                    dev)
         windows[size] = packed
+        cvars, csign, clen = packed.cvars, packed.csign, packed.clen
+        K, C, L = cvars.shape
+        v1 = packed.n_vars + 1
         for B in batches:
-            K = packed.cvars.shape[0]
-            assign = torch.rand((K, B, packed.n_vars + 1), generator=gen,
-                                device=dev) < 0.5
-            got = true_counts_window(packed.cvars, packed.csign, assign)
-            want = true_counts_window_ref(packed.cvars, packed.csign, assign)
-            err = int((got - want).abs().max())
-            if err:
-                raise AssertionError(f"clause_eval window != plain at "
-                                     f"{size} B={B}: max err {err}")
+            assign = torch.rand((K, B, v1), generator=gen, device=dev) < 0.5
+            want = true_counts_window_ref(cvars, csign, assign)
+            err = 0
+            for cl in (clen, None):
+                got = true_counts_window(cvars, csign, assign, cl)
+                err = max(err, int((got - want).abs().max()))
+                if err:
+                    raise AssertionError(
+                        f"clause_eval window != plain at {size} B={B} "
+                        f"({'clen' if cl is not None else 'full rows'}): "
+                        f"max err {err}")
+            del got, want
             row = {
                 "ms": cuda_ms(torch, lambda: true_counts_window(
-                    packed.cvars, packed.csign, assign), flush=flush),
+                    cvars, csign, assign, clen), flush=flush),
+                "no_clen_ms": cuda_ms(torch, lambda: true_counts_window(
+                    cvars, csign, assign), reps=REPS if size == "4x4"
+                    else 10, flush=flush),
                 "plain_ms": cuda_ms(torch, lambda: true_counts_window_ref(
-                    packed.cvars, packed.csign, assign), reps=REPS,
-                    flush=flush),
-                "bound": clause_eval_bound_ms(packed.cvars,
-                                              packed.n_vars + 1, B),
+                    cvars, csign, assign), reps=REPS, flush=flush),
+                "library_ms": None,
+                "bound": clause_eval_bound_ms(cvars, v1, B, clen),
+                "bound_no_clen": clause_eval_bound_ms(cvars, v1, B),
+                "phase_ms": {
+                    "clen": device_phases(torch, lambda: true_counts_window(
+                        cvars, csign, assign, clen)),
+                    "full_rows": device_phases(
+                        torch, lambda: true_counts_window(
+                            cvars, csign, assign), reps=2)},
                 "max_abs_err": err,
-                "shape": f"sha {size} K={K} C={packed.cvars.shape[1]} "
-                         f"L={packed.cvars.shape[2]} V+1={packed.n_vars + 1}"
-                         f" O={packed.ovars.shape[2]} B={B}"}
+                "shape": f"sha {size} K={K} C={C} L={L} V+1={v1} "
+                         f"O={packed.ovars.shape[2]} B={B}, clen route"}
             emit("clause_eval_window", size=size, B=B,
                  seconds_incl_pack=time.perf_counter() - t0,
-                 literals=int((packed.cvars > 0).sum()),
-                 slots=packed.cvars.numel(), **row)
+                 literals=int((cvars > 0).sum()), slots=cvars.numel(),
+                 clen_slots=int(clen.sum()), **row)
             if size == "4x4":
                 out["clause_eval_window"] = row
                 # the K=1 launch on the window's first formula
-                c1, s1, a1 = packed.cvars[0], packed.csign[0], assign[0]
-                k1_err = int((true_counts(c1, s1, a1)
-                              - true_counts_ref(c1, s1, a1)).abs().max())
+                c1, s1, a1, l1 = cvars[0], csign[0], assign[0], clen[0]
+                want1 = true_counts_ref(c1, s1, a1)
+                k1_err = max(int((true_counts(c1, s1, a1, cl)
+                                  - want1).abs().max())
+                             for cl in (l1, None))
                 if k1_err:
                     raise AssertionError("clause_eval K=1 != plain at 4x4")
                 out["clause_eval"] = {
-                    "ms": cuda_ms(torch, lambda: true_counts(c1, s1, a1),
+                    "ms": cuda_ms(torch, lambda: true_counts(c1, s1, a1, l1),
                                   flush=flush),
+                    "no_clen_ms": cuda_ms(torch, lambda: true_counts(
+                        c1, s1, a1), flush=flush),
                     "plain_ms": cuda_ms(torch, lambda: true_counts_ref(
                         c1, s1, a1), flush=flush),
-                    "bound": clause_eval_bound_ms(c1[None], a1.shape[1], B),
+                    "library_ms": None,
+                    "bound": clause_eval_bound_ms(c1[None], v1, B, l1[None]),
+                    "bound_no_clen": clause_eval_bound_ms(c1[None], v1, B),
                     "max_abs_err": k1_err,
                     "shape": row["shape"].replace(f"K={K}", "K=1")}
                 emit("clause_eval", **out["clause_eval"])
@@ -529,13 +606,13 @@ def main_path(torch):
     from repro_torch import MapRequest, compile
     from repro_torch.core import suite
     from repro_torch.core.sat import portfolio
+    from repro_torch.kernels import clause_eval
     from repro_torch.kernels.clause_eval import true_counts, true_counts_window
     from repro_torch.kernels.flip_update import (flip_update, reset_counts,
                                                  walk_chunk)
     if repro_torch.get_default_device() != "cuda":
         raise AssertionError("the port must default to cuda")
-    for f in (true_counts_window, true_counts):
-        f.launches = 0
+    clause_eval.reset_counts()
     reset_counts()
     for name in suite.names():
         t0 = time.perf_counter()
@@ -572,17 +649,23 @@ def main_path(torch):
     if not (launches["clause_eval_window"] and launches["walk_chunk"]):
         raise AssertionError(f"main path did not launch its kernels: "
                              f"{launches}")
+    ce_routes = dict(true_counts_window.route_launches)
+    if ce_routes["full_rows"]:
+        raise AssertionError(f"the walk evaluated its windows without their "
+                             f"row lengths: {ce_routes}")
     if portfolio.racer_failures():
         raise AssertionError(f"{portfolio.racer_failures()} walk racer(s) "
                              f"failed")
     emit("main_path", launches=launches, racer_failures=0,
+         clause_eval_window_route_launches=ce_routes,
          walk_chunk_route_launches=walk_chunk.route_launches,
          walk_chunk_steps=walk_chunk.steps,
          walk_seconds=walk_s, walk_steps=walk_steps,
          steps_per_s=walk_steps / walk_s,
          flips_per_s=walk_steps * 4 * 24 / walk_s)
     return launches, {"steps": walk_chunk.steps,
-                      "route_launches": dict(walk_chunk.route_launches)}
+                      "route_launches": dict(walk_chunk.route_launches),
+                      "clause_eval_route_launches": ce_routes}
 
 
 def _close(got, want, atol, rtol):
@@ -834,6 +917,8 @@ def lm_kernel_phase(torch):
                     Bm.element_size(),
                     BF16_TENSOR_FLOPS if dtype == torch.bfloat16
                     else F32_FLOPS),
+                "phase_ms": device_phases(torch, lambda: ssd_scan(
+                    x, dt, A_log, Bm, Cm, Dv, chunk=chunk)),
                 "max_abs_err": err, "chunked_max_abs_err": c_err,
                 "max_abs_y": float(want.abs().max()),
                 "shape": f"x [{b},{s},{h},{p}] B/C [{b},{s},{n}] "
@@ -1081,6 +1166,8 @@ def main() -> int:
     del windows
     torch.cuda.empty_cache()
     launches, walk = main_path(torch)
+    times["clause_eval_window"]["main_path_route_launches"] = \
+        walk["clause_eval_route_launches"]
     times["walk_chunk"].update(
         main_path_steps=walk["steps"],
         main_path_route_launches=walk["route_launches"],
@@ -1118,6 +1205,8 @@ def main() -> int:
         t = times[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
+        if name.startswith("clause_eval"):
+            t["note"] = CLAUSE_NOTE
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": replaces, "launches": launches[name],

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .core.dfg import DFG
-from .core.sat.walksat_torch import PackedCNF
+from .core.sat.walksat_torch import PackedCNF, row_lengths
 from .models.config import ModelConfig
 from .models.model import param_shapes
 
@@ -70,7 +70,8 @@ def dfg_from_graph(src) -> DFG:
 def window_from_numpy(pack, device) -> PackedCNF:
     """The port's :class:`PackedCNF` on ``device`` from a stacked numpy
     window pack (anything with ``cvars``/``csign`` [K,C,L], ``ovars``/
-    ``osign`` [K,V+1,O], ``n_vars`` and ``n_clauses``)."""
+    ``osign`` [K,V+1,O], ``n_vars`` and ``n_clauses``, and optionally the
+    row lengths ``clen`` [K,C], derived from ``cvars`` where missing)."""
     cvars = np.asarray(pack.cvars)
     ovars = np.asarray(pack.ovars)
     if cvars.ndim != 3 or ovars.ndim != 3 \
@@ -83,9 +84,14 @@ def window_from_numpy(pack, device) -> PackedCNF:
     def t(a, dtype):
         return torch.from_numpy(np.array(a, dtype)).to(device)
 
+    # the row lengths; a pack of the JAX package has none, so derive them
+    clen = getattr(pack, "clen", None)
+    if clen is None:
+        clen = row_lengths(cvars)
     return PackedCNF(t(cvars, np.int32), t(pack.csign, bool),
                      t(ovars, np.int32), t(pack.osign, bool),
-                     int(pack.n_vars), int(pack.n_clauses))
+                     int(pack.n_vars), int(pack.n_clauses),
+                     t(clen, np.int32))
 
 
 def assign_from_numpy(assign, packed: PackedCNF) -> torch.Tensor:

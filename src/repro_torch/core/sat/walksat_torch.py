@@ -89,6 +89,9 @@ class PackedCNF(NamedTuple):
     osign: torch.Tensor  # [K, V+1, Omax] bool sign of the var in that clause
     n_vars: int
     n_clauses: int
+    # [K, C] int32 row lengths: one past each row's last non-zero slot
+    # (derived from cvars); None reads whole rows
+    clen: Optional[torch.Tensor] = None
 
 
 class HostPack(NamedTuple):
@@ -102,6 +105,7 @@ class HostPack(NamedTuple):
     osign: np.ndarray
     n_vars: int
     n_clauses: int
+    clen: Optional[np.ndarray] = None   # [C] / [K, C] int32 row lengths
 
 
 def pack_cnf_np(cnf: CNF) -> HostPack:
@@ -146,7 +150,17 @@ def pack_cnf_np(cnf: CNF) -> HostPack:
         j = np.arange(n) - (np.cumsum(counts) - counts)[va]
         ovars[va, j] = rows[order]
         osign[va, j] = sg[order]
-    return HostPack(cvars, csign, ovars, osign, V, C)
+    # every literal is non-zero and fills its row from slot 0 on
+    return HostPack(cvars, csign, ovars, osign, V, C, lens.astype(np.int32))
+
+
+def row_lengths(cvars: np.ndarray) -> np.ndarray:
+    """One past the last non-zero slot of each row of ``cvars`` [..., L]
+    (0 for a row of zeros), int32: the ``clen`` of a pack that lacks it."""
+    nz = np.asarray(cvars) != 0
+    L = nz.shape[-1]
+    last = L - np.argmax(nz[..., ::-1], axis=-1)
+    return np.where(nz.any(-1), last, 0).astype(np.int32)
 
 
 def _bucket(x: int, q: int) -> int:
@@ -188,10 +202,12 @@ def pack_cnf_window_np(cnfs: List[CNF],
     csign = np.zeros((K, C, L), bool)
     ovars = np.full((K, V + 1, O), -1, np.int32)
     osign = np.zeros((K, V + 1, O), bool)
+    clen = np.full((K, C), 2, np.int32)
     for k, p in enumerate(host):
         c, l = p.cvars.shape
         cvars[k, :c, :l] = p.cvars
         csign[k, :c, :l] = p.csign
+        clen[k, :c] = p.clen if p.clen is not None else row_lengths(p.cvars)
         # tautology padding for clause rows [c, C)
         cvars[k, c:, 0] = 1
         cvars[k, c:, 1] = 1
@@ -200,7 +216,7 @@ def pack_cnf_window_np(cnfs: List[CNF],
         v, o = p.ovars.shape
         ovars[k, :v, :o] = p.ovars
         osign[k, :v, :o] = p.osign
-    return HostPack(cvars, csign, ovars, osign, V, C)
+    return HostPack(cvars, csign, ovars, osign, V, C, clen)
 
 
 def pack_cnf_window(cnfs: List[CNF],
@@ -333,7 +349,8 @@ def _initial_state(packed: PackedCNF, assign0: torch.Tensor) -> _WalkState:
     dev = assign0.device
     v1 = packed.n_vars + 1
     return _WalkState(
-        assign0, true_counts_window(packed.cvars, packed.csign, assign0),
+        assign0, true_counts_window(packed.cvars, packed.csign, assign0,
+                                    packed.clen),
         torch.zeros(K, dtype=torch.bool, device=dev),
         torch.zeros((K, v1), dtype=torch.bool, device=dev),
         torch.zeros(K, dtype=torch.bool, device=dev),
@@ -471,7 +488,8 @@ def _solve_window_host(cnfs, live, packed, results, *, seed, steps, batch,
     while done < steps and pending:
         if stop is not None and stop():
             break
-        tc = true_counts_window(packed.cvars, packed.csign, assign)
+        tc = true_counts_window(packed.cvars, packed.csign, assign,
+                                packed.clen)
         assign, tc = _window_chunk(packed, assign, tc, chunk, cb, key, done)
         solved_np = (~(tc == 0).any(-1)).cpu().numpy()        # [K, B]
         for j in sorted(pending):

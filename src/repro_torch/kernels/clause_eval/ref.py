@@ -6,6 +6,8 @@ walk evaluates for every chain at the start of every chunk.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # elements of the [K, B, clauses, L] gather held at once: the 8x8 window
@@ -14,9 +16,13 @@ _GATHER_BUDGET = 1 << 26
 
 
 def true_counts_window_ref(cvars: torch.Tensor, csign: torch.Tensor,
-                           assign: torch.Tensor) -> torch.Tensor:
+                           assign: torch.Tensor,
+                           clen: Optional[torch.Tensor] = None,
+                           ) -> torch.Tensor:
     """cvars [K,C,L] int32 (1-based var ids, 0 = padding); csign [K,C,L]
-    bool; assign [K,B,V+1] bool. Returns [K,B,C] int32."""
+    bool; assign [K,B,V+1] bool. Returns [K,B,C] int32. ``clen`` (the row
+    lengths the kernel may bound its reads by) is taken and ignored: every
+    slot past a row's clen is padding, which counts nothing."""
     K, C, L = cvars.shape
     B = assign.shape[1]
     out = torch.empty((K, B, C), dtype=torch.int32, device=assign.device)
@@ -32,6 +38,8 @@ def true_counts_window_ref(cvars: torch.Tensor, csign: torch.Tensor,
 
 
 def true_counts_ref(cvars: torch.Tensor, csign: torch.Tensor,
-                    assign: torch.Tensor) -> torch.Tensor:
-    """One CNF: cvars/csign [C,L]; assign [B,V+1] bool -> [B,C] int32."""
+                    assign: torch.Tensor,
+                    clen: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One CNF: cvars/csign [C,L]; assign [B,V+1] bool -> [B,C] int32
+    (``clen`` ignored, as above)."""
     return true_counts_window_ref(cvars[None], csign[None], assign[None])[0]
