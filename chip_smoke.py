@@ -39,6 +39,7 @@ Every phase prints one JSON line; the line before the last is the
 raises and exits non-zero without that line, as does a machine without
 CUDA or a directory without the port's sources.
 """
+import asyncio
 import json
 import os
 import statistics
@@ -53,6 +54,11 @@ EXPECTED_II_4X4 = {"sha": 7, "sha2": 8, "gsm": 6, "patricia": None,
                    "bitcount": 6, "backprop": 6, "nw": 5, "srand": 3,
                    "hotspot": 7, "basicmath": 8, "stringsearch": 5}
 WALKSAT_KERNELS = ("sha", "gsm", "nw")
+# the service phase: benchmarks/serve_load.py's --quick corpus (3x3, two
+# near variants each), its storm size, and each request's deadline
+SERVE_LOAD_KERNELS = ("sha", "gsm", "srand", "bitcount", "nw")
+STORM_CLIENTS = 1000
+SERVICE_DEADLINE_S = 120.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit rate
 F32_FLOPS = 67e12                # H100 SXM non-tensor f32 rate
@@ -82,7 +88,7 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "bound_ms_per_step", "main_path_steps",
                  "main_path_route_launches", "step_wall_ms",
                  "step_device_busy_share", "earlier", "no_clen_ms",
-                 "bound_no_clen", "phase_ms")
+                 "bound_no_clen", "phase_ms", "service_path_launches")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
@@ -169,12 +175,14 @@ def device_phases(torch, fn, reps=5):
     """Device time of each kernel that ``fn`` launches once per call, ms
     per launch, from torch.profiler over ``reps`` calls after a warm-up
     (averaged over the launches the trace holds, as a trace may drop
-    some); names without their namespace and arguments."""
+    some); names without their namespace and arguments. None ("not
+    measured") when every one of the tries came back with an empty trace:
+    the split is reported, not checked, and the events time the call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):          # a trace now and then comes back empty
+    for _ in range(6):          # a trace now and then comes back empty
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -190,7 +198,9 @@ def device_phases(torch, fn, reps=5):
             out[name] = us / 1e3 / e.count
         if out:
             return out
-    raise AssertionError("torch.profiler recorded no device kernels")
+    emit("device_phases", not_measured="torch.profiler recorded no device "
+                                       "kernels in 6 traces")
+    return None
 
 
 def flip_update_bound_ms(occ_c):
@@ -934,6 +944,322 @@ def lm_kernel_phase(torch):
     return out
 
 
+def clause_eval_band_phase(torch):
+    """The chain tile of clause_eval counts the eval kernel's static shared
+    memory: at V+1 = 7264 and 256 chains a tile of 8 words (the choice
+    that ignored those bytes) overflows the card's 227 KB, the chosen 7
+    fit. Held bit-exact to the plain version on a random table (L = 7),
+    on both routes, and timed beside both routes' bounds."""
+    from repro_torch.kernels.clause_eval import (true_counts_window,
+                                                 true_counts_window_ref)
+    from repro_torch.kernels.clause_eval.kernel import eval_smem
+    from repro_torch.kernels.clause_eval.ops import (EVAL_STATIC_SMEM,
+                                                     eval_tile)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    K, C, L, V1, B = 1, 4096, 7, 7264, 256
+    cv = torch.randint(0, V1, (K, C, L), generator=gen, device=dev,
+                       dtype=torch.int32)
+    cs = torch.rand((K, C, L), generator=gen, device=dev) < 0.5
+    a = torch.rand((K, B, V1), generator=gen, device=dev) < 0.5
+    clen = torch.randint(0, L + 1, (K, C), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cvc = torch.where(torch.arange(L, device=dev) < clen[..., None], cv, 0)
+    for what, table, cl in (("full rows", cv, None), ("clen", cvc, clen)):
+        if not torch.equal(true_counts_window(table, cs, a, cl),
+                           true_counts_window_ref(table, cs, a)):
+            raise AssertionError(f"clause_eval != plain at V+1 = {V1}, "
+                                 f"B = {B} ({what})")
+    static, optin = eval_smem()
+    tile = eval_tile(B, V1)
+    row = {"ms": cuda_ms(torch, lambda: true_counts_window(cvc, cs, a, clen)),
+           "no_clen_ms": cuda_ms(torch, lambda: true_counts_window(cv, cs,
+                                                                   a)),
+           "plain_ms": cuda_ms(torch, lambda: true_counts_window_ref(
+               cvc, cs, a), reps=10),
+           "bound": clause_eval_bound_ms(cvc, V1, B, clen),
+           "bound_no_clen": clause_eval_bound_ms(cv, V1, B)}
+    emit("clause_eval_smem_band", V1=V1, B=B, C=C, L=L, tile_words=tile,
+         dynamic_bytes=4 * V1 * tile, static_bytes=static,
+         static_bytes_counted=EVAL_STATIC_SMEM, optin_bytes=optin,
+         old_tile_bytes=4 * V1 * 8, bit_exact=True, **row)
+
+
+def near_variant(g, v):
+    """A near-shape sibling of ``g`` (as ``benchmarks/serve_load.py``
+    makes them): input ``v % sites`` of some two-input node is rewired onto
+    the node's other producer, keeping node and edge counts, kinds and the
+    distance set (one lattice bucket), not the exact edges."""
+    import copy
+    g2 = copy.deepcopy(g)
+    sites = [nid for nid in sorted(g2.nodes)
+             if len(g2.nodes[nid].ins) == 2
+             and g2.nodes[nid].ins[0][1] == 0
+             and g2.nodes[nid].ins[1][1] == 0
+             and g2.nodes[nid].ins[0][0] != g2.nodes[nid].ins[1][0]]
+    if not sites:
+        return None
+    nid = sites[v % len(sites)]
+    node = g2.nodes[nid]
+    keep = node.ins[v // len(sites) % 2][0]
+    node.ins = ((keep, 0), (keep, 0))
+    g2.touch()
+    g2.name = f"{g.name}~v{v}"
+    g2.validate()
+    return g2
+
+
+def _same_result(a, b):
+    """What a client consumes: verdict, II and MII, the exact placement."""
+    return (a.success == b.success and a.ii == b.ii and a.mii == b.mii
+            and a.placement == b.placement)
+
+
+async def _serve_corpus(door, corpus, cfg, use_cache=True):
+    t0 = time.perf_counter()
+    res = await asyncio.gather(*[
+        door.compile(g, cgra, cfg, use_cache=use_cache,
+                     deadline_s=SERVICE_DEADLINE_S) for _, g, cgra in corpus])
+    return list(res), time.perf_counter() - t0
+
+
+async def _storm(door, corpus, cfg, n_clients):
+    from repro_torch.launch.serve import DeadlineExceeded
+    lat, fails = [], {"deadline_violations": 0, "errors": 0}
+
+    async def client(i):
+        _, g, cgra = corpus[i % len(corpus)]
+        t0 = time.perf_counter()
+        try:
+            await door.compile(g, cgra, cfg, deadline_s=SERVICE_DEADLINE_S)
+            lat.append(time.perf_counter() - t0)
+        except DeadlineExceeded:
+            fails["deadline_violations"] += 1
+        except Exception:
+            fails["errors"] += 1
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[client(i) for i in range(n_clients)])
+    wall = time.perf_counter() - t0
+    lat_ms = sorted(x * 1e3 for x in lat)
+
+    def pct(p):
+        return lat_ms[min(len(lat_ms) - 1, int(p / 100 * len(lat_ms)))] \
+            if lat_ms else None
+
+    return {"clients": n_clients, "served": len(lat), **fails,
+            "wall_s": wall, "req_per_s": len(lat) / wall,
+            "p50_ms": pct(50), "p99_ms": pct(99)}
+
+
+def service_phase(torch, smi):
+    """The mapping service tier on the card, in a process that initialised
+    CUDA long before: walksat requests through an in-process
+    MappingService (cache, then disk after a restart), a spawned
+    WorkerPool whose shard runs the walk on the card, the four phases of
+    ``benchmarks/serve_load.py --quick --check`` through CompileFrontDoor
+    with their gates, and ``serve --offload-cgra``'s mapping of
+    hymba_1_5b's loops. The service timings are host-bound (the CDCL and
+    the processes around it), not kernel times. Returns the walk kernels'
+    launch counts of the in-process service run."""
+    import shutil
+    from repro_torch import MapRequest, compile
+    from repro_torch.configs import get_config
+    from repro_torch.core import suite
+    from repro_torch.core.cgra import cgra_from_name
+    from repro_torch.core.mapper import MapperConfig
+    from repro_torch.core.service import MappingService
+    from repro_torch.core.store import MappingStore
+    from repro_torch.core.workers import WorkerPool, _probe_shards
+    from repro_torch.kernels import clause_eval
+    from repro_torch.kernels.clause_eval import true_counts_window
+    from repro_torch.kernels.flip_update import reset_counts, walk_chunk
+    from repro_torch.launch.serve import CompileFrontDoor, offload_report
+    from repro_torch.kernels._cuda import BUILD_DIR
+    base = BUILD_DIR.parent / "chip_smoke_service"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+
+    # -- in-process service: walksat requests, then cache, then disk ------
+    store_dir = str(base / "inproc")
+    svc = MappingService(store=MappingStore(store_dir))
+    clause_eval.reset_counts()
+    reset_counts()
+    first = {}
+    for name in WALKSAT_KERNELS:
+        t0 = time.perf_counter()
+        res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
+                                 sweep_width=4, solver="walksat",
+                                 service=svc))
+        secs = time.perf_counter() - t0
+        win = [a for a in res.attempts if a.ii == res.ii]
+        if res.ii != EXPECTED_II_4X4[name] or not win or \
+                win[0].via != "walksat" or res.service.via != "cold":
+            raise AssertionError(f"service {name}: II {res.ii} (expected "
+                                 f"{EXPECTED_II_4X4[name]}), via "
+                                 f"{res.service.via}, winner "
+                                 f"{win[0].via if win else None}")
+        first[name] = res
+        emit("service_compile", kernel=name, solver="walksat", ii=res.ii,
+             via=res.service.via, seconds=secs)
+    launches = {"clause_eval_window": true_counts_window.launches,
+                "walk_chunk": walk_chunk.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"the service's walks launched no kernel: "
+                             f"{launches}")
+    for name in WALKSAT_KERNELS:
+        res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
+                                 sweep_width=4, solver="walksat",
+                                 service=svc))
+        if res.service.via != "cache" or not _same_result(res, first[name]):
+            raise AssertionError(f"service repeat {name}: via "
+                                 f"{res.service.via}")
+    svc2 = MappingService(store=MappingStore(store_dir))
+    for name in WALKSAT_KERNELS:
+        res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
+                                 sweep_width=4, solver="walksat",
+                                 service=svc2))
+        if res.service.via != "disk" or not _same_result(res, first[name]) \
+                or [(a.ii, a.status, a.via) for a in res.attempts] != \
+                [(a.ii, a.status, a.via) for a in first[name].attempts]:
+            raise AssertionError(f"service restart {name}: via "
+                                 f"{res.service.via}, not the first result")
+    emit("service_inproc", kernels=list(WALKSAT_KERNELS), launches=launches,
+         repeat_via="cache", restart_via="disk", bit_identical=True,
+         stats=svc.describe())
+
+    # -- the four phases of serve_load.py --quick, over spawned shards -----
+    cfg = MapperConfig(solver="auto", timeout_s=120.0, max_learnt=100_000)
+    corpus, variants = [], []
+    for size in ("3x3",):
+        cgra = cgra_from_name(size)
+        for name in SERVE_LOAD_KERNELS:
+            g = suite.get(name)
+            corpus.append((f"{name}/{size}", g, cgra))
+            for v in range(2):
+                gv = near_variant(g, v)
+                if gv is not None:
+                    variants.append((f"{gv.name}/{size}", gv, cgra))
+    n_base = len(corpus)
+    corpus += variants
+    pool_dir = str(base / "pool")
+    walk_cfg = MapperConfig(solver="walksat")
+    t0 = time.perf_counter()
+    with WorkerPool(workers=2, store_path=pool_dir, near_delta=1) as pool:
+        start_s = time.perf_counter() - t0
+        shard = pool.shard_of(suite.get("nw"), cgra_from_name("4x4"),
+                              walk_cfg)
+        res = pool.map(suite.get("nw"), cgra_from_name("4x4"), walk_cfg,
+                       sweep_width=4)
+        if res.ii != EXPECTED_II_4X4["nw"] or not any(
+                a.via == "walksat" for a in res.attempts if a.ii == res.ii):
+            raise AssertionError(f"shard walksat nw: II {res.ii}")
+        probes = _probe_shards(pool)
+        walked = probes[shard]
+        if walked["device"] != "cuda" or not (
+                walked["launches"]["clause_eval_window"]
+                and walked["launches"]["walk_chunk"]) or \
+                walked["pid"] == os.getpid():
+            raise AssertionError(f"the shard's walk did not run on the "
+                                 f"card: {probes}")
+        emit("service_shard_walk", start_s=start_s, shard=shard,
+             probes=probes, ii=res.ii)
+
+        async def cold_phase():
+            async with CompileFrontDoor(pool, window_ms=4.0,
+                                        max_batch=64) as door:
+                a, ta = await _serve_corpus(door, corpus[:n_base], cfg)
+                b, tb = await _serve_corpus(door, corpus[n_base:], cfg)
+            return a + b, ta + tb
+        cold, t_cold = asyncio.run(cold_phase())
+        cold_stats = pool.stats()
+        cold_probes = _probe_shards(pool)
+
+    with WorkerPool(workers=2, store_path=pool_dir, near_delta=1) as pool:
+        async def warm_phases():
+            async with CompileFrontDoor(pool, window_ms=4.0,
+                                        max_batch=64) as door:
+                warm, t_warm = await _serve_corpus(door, corpus, cfg)
+                resolved, t_res = await _serve_corpus(
+                    door, corpus[:n_base], cfg, use_cache=False)
+                storm = await _storm(door, corpus, cfg, STORM_CLIENTS)
+                return warm, t_warm, resolved, t_res, storm, \
+                    door.stats.snapshot()
+        warm, t_warm, resolved, t_res, storm, door_stats = \
+            asyncio.run(warm_phases())
+        warm_stats = pool.stats()
+        warm_probes = _probe_shards(pool)
+
+    direct = [compile(MapRequest(dfg=g, arch=cgra, config=cfg))
+              for _, g, cgra in corpus]
+    bad = []
+    mism = [n for (n, _, _), a, b in zip(corpus, cold, direct)
+            if not _same_result(a, b)]
+    if mism:
+        bad.append(f"served != direct compile() on {mism}")
+    drift = [n for (n, _, _), a, b in zip(corpus, warm, cold)
+             if not _same_result(a, b)]
+    if drift:
+        bad.append(f"warm restart drifted from cold on {drift}")
+    not_disk = [n for (n, _, _), r in zip(corpus, warm)
+                if r.service.via != "disk"]
+    if not_disk:
+        bad.append(f"warm restart not served from disk on {not_disk}")
+    speedup = t_cold / max(t_warm, 1e-9)
+    if speedup < 3.0:
+        bad.append(f"warm restart {speedup:.2f}x < 3x faster than cold")
+    # a re-solve starts from the preloaded cores, so its model (the
+    # placement) may differ; its verdict and II may not
+    resolve_bad = [n for (n, _, _), a, b in
+                   zip(corpus, resolved, cold[:n_base])
+                   if (a.success, a.ii) != (b.success, b.ii)]
+    if resolve_bad:
+        bad.append(f"re-solves found another II than cold on {resolve_bad}")
+    if cold_stats.get("near_hits", 0) < 1:
+        bad.append("no near-shape warm admissions")
+    if warm_stats.get("cores_preloaded", 0) < 1:
+        bad.append("restarted shards preloaded no UNSAT cores")
+    if storm["clients"] < 1000 or storm["deadline_violations"] or \
+            storm["errors"] or storm["served"] != storm["clients"]:
+        bad.append(f"storm: {storm}")
+    hit_rates = {
+        "near_shape": cold_stats.get("near_hits", 0) / max(len(variants), 1),
+        "disk": warm_stats.get("disk_hits", 0)
+        / max(warm_stats.get("requests", 0), 1),
+        "cache": (cold_stats.get("cache_hits", 0)
+                  + warm_stats.get("cache_hits", 0))
+        / max(cold_stats.get("requests", 0)
+              + warm_stats.get("requests", 0), 1),
+        "core_prune_iis": warm_stats.get("iis_pruned", 0),
+        "cores_preloaded": warm_stats.get("cores_preloaded", 0),
+        "near_hits": cold_stats.get("near_hits", 0)}
+    emit("service_load", device=smi, host_bound=True,
+         corpus_cells=len(corpus), base_cells=n_base,
+         variant_cells=len(variants), cold_s=t_cold, warm_s=t_warm,
+         warm_speedup=speedup, resolve_s=t_res, storm=storm,
+         hit_rates=hit_rates, front_door=door_stats,
+         shard_launches={"cold_pool": [p["launches"] for p in cold_probes],
+                         "warm_pool": [p["launches"] for p in warm_probes]},
+         shard_devices=[p["device"] for p in cold_probes + warm_probes],
+         gates_failed=bad)
+    if bad:
+        raise AssertionError("serve_load gates: " + "; ".join(bad))
+
+    # -- serve --offload-cgra: hymba_1_5b's loops through get_service() ----
+    t0 = time.perf_counter()
+    loops = offload_report(get_config("hymba_1_5b"), "4x4")
+    want = ["rmsnorm_acc", "rope_rotation", "ssd_recurrence"]
+    if list(loops) != want or not all(r.success for r in loops.values()):
+        got = [(n, r.ii) for n, r in loops.items()]
+        raise AssertionError(f"offload: {got}, expected {want} mapped")
+    emit("service_offload", arch="hymba_1_5b", cgra="4x4",
+         ii={n: r.ii for n, r in loops.items()},
+         via={n: r.service.via for n, r in loops.items()},
+         seconds=time.perf_counter() - t0)
+    shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
 def _counters():
     from repro_torch.kernels.clause_eval import true_counts, true_counts_window
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1012,21 +1338,24 @@ def _profile(torch, fn, match):
     and the operators that launched the most device time (self time of
     the kernels each launched directly)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
 
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
         return e.self_cuda_time_total if v is None else v
-    rows = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in rows if e.device_type == cuda]
+    for _ in range(6):          # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        kernels = [e for e in rows if e.device_type == cuda]
+        if kernels:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device kernels")
     ops = sorted((e for e in rows if e.device_type != cuda and dev_us(e)),
                  key=dev_us, reverse=True)
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device kernels")
     return {"device_ms": sum(dev_us(e) for e in kernels) / 1e3,
             f"{match}_ms": sum(dev_us(e) for e in kernels
                                if match in e.key) / 1e3,
@@ -1151,7 +1480,7 @@ def main() -> int:
     # and the f32 agreement run alike
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    environment(torch)
+    smi = environment(torch)
     t0 = time.perf_counter()
     report = _cuda.build(["clause_eval", "flip_update", "flash_attention",
                           "ssd_scan"])
@@ -1160,6 +1489,7 @@ def main() -> int:
          ptxas={n: [ln for ln in log.splitlines() if "registers" in ln
                     or "smem" in ln] for n, (_, log) in report.items()})
     times, windows = kernel_phase(torch)
+    clause_eval_band_phase(torch)
     times["walk_chunk"] = walk_chunk_phase(torch, windows)
     engine_phase(torch, windows["4x4"])
     step = walk_step_phase(torch, windows["4x4"])
@@ -1176,6 +1506,11 @@ def main() -> int:
         earlier={"design": "flip_update: one launch per walk step, beside "
                            "~30 torch launches for the pick",
                  "ms_per_step": times["flip_update"]["ms"]})
+    torch.cuda.empty_cache()
+    service = service_phase(torch, smi)
+    times["clause_eval_window"]["service_path_launches"] = \
+        service["clause_eval_window"]
+    times["walk_chunk"]["service_path_launches"] = service["walk_chunk"]
     torch.cuda.empty_cache()
     lm_times = lm_kernel_phase(torch)
     flash_edge_phase(torch)

@@ -13,15 +13,16 @@ one declarative request object that names every axis of that space, and
     compile(MapRequest(dfg=g, arch="4x4"))                    # Fig. 3 loop
     compile(MapRequest(dfg=g, arch="4x4-torus:r8",
                        sweep_width=4))                        # parallel sweep
-    compile(MapRequest(dfg=g, arch=arch("4x4-onehop", mem="col0")))
+    compile(MapRequest(dfg=g, arch=arch("4x4-onehop", mem="col0"),
+                       service="default"))                    # pooled + cached
     compile(MapRequest(dfg=g, arch="5x5", routing=True))      # route retries
 
 ``arch`` accepts a fabric name (parsed by :func:`repro_torch.core.arch.arch`),
 a declarative :class:`~repro_torch.core.arch.ArchSpec`, or a legacy
-:class:`~repro_torch.core.cgra.CGRA`. The JAX package's mapping service
-(``service="default"``) is not ported yet, so any ``service`` other than
-``None`` (the default, which solves standalone) raises
-``NotImplementedError``.
+:class:`~repro_torch.core.cgra.CGRA`. ``service="default"`` routes through the
+process-wide :class:`~repro_torch.core.service.MappingService`; a service
+instance routes through that instance; ``None`` (default) solves
+standalone.
 """
 from __future__ import annotations
 
@@ -115,12 +116,19 @@ def compile(request: Union[MapRequest, DFG], /, **kw) -> MappingResult:
     from .schedule import res_mii
     res_mii(req.dfg, arch_obj)        # raises Infeasible with the reason
     cfg = req.resolved_config()
-    if req.service is not None:
-        raise NotImplementedError(
-            "the mapping service (repro.core.service in the JAX package) is "
-            "not ported to repro_torch yet; leave MapRequest.service None")
-    res = map_loop(req.dfg, arch_obj, cfg, sweep_width=req.sweep_width,
-                   session=req.session)
+    svc = req.service
+    if isinstance(svc, str):
+        if svc != "default":
+            raise ValueError(f"unknown service {svc!r}: expected None, "
+                             f"'default', or a MappingService instance")
+        from .service import get_service
+        svc = get_service()
+    if svc is not None:
+        res = svc.map(req.dfg, arch_obj, cfg, sweep_width=req.sweep_width,
+                      use_cache=req.use_cache)
+    else:
+        res = map_loop(req.dfg, arch_obj, cfg, sweep_width=req.sweep_width,
+                       session=req.session)
     if res.infeasible:
         # belt-and-braces for engine- or cache-produced verdicts the gate
         # above could not see (message-only: the gate is the typed path)

@@ -112,7 +112,7 @@ class MappingResult:
     # sweep. None for every feasible request.
     infeasible: Optional[str] = None
     # per-request reuse statistics when the request was served by a
-    # mapping service (not ported yet); None otherwise
+    # MappingService (repro_torch.core.service.RequestStats); None otherwise
     service: Optional[object] = None
     # structured, machine-readable warnings (each {"kind": ..., ...}):
     # e.g. routing retries silently forcing the sequential engine. Read
@@ -276,10 +276,9 @@ def map_loop(dfg: DFG, cgra: CGRA, cfg: MapperConfig | None = None,
     returning the same II as the sequential path. Routing retries
     (``cfg.routing``) are sequential-only and force ``sweep_width=1``.
 
-    ``service`` (any object with the JAX package's
-    ``MappingService.map`` signature; the service itself is not ported
-    yet) routes the request through it; ``None`` — the default —
-    preserves the standalone behaviour. ``session``
+    ``service`` (a ``repro_torch.core.service.MappingService``) routes the
+    request through the long-lived solver pool + mapping cache; ``None``
+    — the default — preserves the standalone behaviour. ``session``
     injects an existing warm ``SolverSession`` whose formula matches this
     (dfg, cgra, amo) shape — the service uses it to share one persistent
     solver across requests; IIs the session has already refuted via a

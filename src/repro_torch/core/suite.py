@@ -46,9 +46,10 @@ def run_suite(cgra, cfg=None, sweep_width: int = 1,
     (asserted by the JAX package's tests/test_sweep.py); this is the convenience entry point
     for batch runs over the whole suite.
 
-    ``service`` is handed to ``compile``; the mapping service is not
-    ported yet, so anything but ``None`` (standalone per-kernel mapping)
-    raises ``NotImplementedError``.
+    ``service`` is handed to ``compile``: ``None`` maps each kernel
+    standalone, ``"default"`` or a
+    :class:`~repro_torch.core.service.MappingService` routes every kernel
+    through that service's cache and warm solver pool.
 
     This is now a thin batch shim over the unified front door: each kernel
     becomes one ``MapRequest`` served by ``repro_torch.core.api.compile`` (which

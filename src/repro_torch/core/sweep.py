@@ -72,7 +72,7 @@ def map_sweep(dfg: DFG, cgra: CGRA, cfg: Optional[MapperConfig] = None,
     applied here.
 
     ``service`` routes the request through a long-lived
-    mapping service (not ported yet; see ``api.compile``) (None = standalone, today's
+    ``repro_torch.core.service.MappingService`` (None = standalone, today's
     behaviour); ``session`` injects a warm ``SolverSession`` whose
     formula matches this (dfg, cgra, amo) shape. Candidate IIs the
     session has already refuted via a failed-assumption core are dropped

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILDS_FORBIDDEN = False
 
 
 class KernelError(RuntimeError):
@@ -54,17 +55,32 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def forbid_builds() -> None:
+    """Make this process load only kernels that are built already: from
+    now on :func:`build` raises :class:`KernelError` for a source whose
+    library is missing, instead of running ``nvcc``. A serving shard calls
+    it, since the process that started it built what the shards run."""
+    global _BUILDS_FORBIDDEN
+    _BUILDS_FORBIDDEN = True
+
+
 def build(names: Iterable[str]) -> Dict[str, Tuple[float, str]]:
     """Build the named sources that are not built yet, all ``nvcc``s at
     once. Returns ``{name: (seconds, ptxas report)}`` for each source built
-    by this call; raises :class:`KernelError` if any build fails."""
+    by this call; raises :class:`KernelError` if any build fails, or if a
+    library is missing in a process that called :func:`forbid_builds`."""
+    missing = [n for n in names if not library_path(n).exists()]
+    if missing and _BUILDS_FORBIDDEN:
+        raise KernelError(f"kernels {missing} are not built under "
+                          f"{BUILD_DIR}, and this process may not build "
+                          f"them (forbid_builds)")
+    if not missing:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name in names:
+    for name in missing:
         out = library_path(name)
-        if out.exists():
-            continue
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -17,15 +17,36 @@ from typing import Optional
 
 import torch
 
-from .kernel import clause_eval_window_cuda
+from .._cuda import KernelError
+from .kernel import clause_eval_window_cuda, eval_smem
 from .ref import true_counts_ref, true_counts_window_ref
 
 # the kernel's two ways of reading a row: its slots [0, clen), or all L
 ROUTES = ("clen", "full_rows")
 
-# the kernel's shared memory holds one 32-bit plane word per variable for
-# each 32 chains of its tile, so at least V+1 words must fit in 227 KB
-MAX_VARS_PLUS_ONE = 232448 // 4
+# An H100 block may hold 227 KB of shared memory, static and dynamic
+# together. The eval kernel's static part is its long-row queue,
+# queue[256] and queued[2] ints (csrc/clause_eval.cu): 1032 bytes
+# declared, 1040 held by the compiled kernel (cudaFuncGetAttributes on an
+# H100, sm_90a; the first launch checks it). The dynamic part holds one
+# 32-bit plane word per variable for each 32 chains of its tile, so at
+# least V+1 words must fit in what the static part leaves.
+SMEM_OPTIN = 232448
+EVAL_STATIC_SMEM = 1040
+SMEM_BUDGET = SMEM_OPTIN - EVAL_STATIC_SMEM
+MAX_VARS_PLUS_ONE = SMEM_BUDGET // 4
+MAX_TILE_WORDS = 8   # 256 chains a block
+
+
+def eval_tile(B: int, V1: int) -> int:
+    """The eval kernel's chain tile for B chains over V1 = V+1 variables, in
+    32-chain words: as many as the chains need, at most 8, and no more than
+    fit ``SMEM_BUDGET``. Raises ``ValueError`` when not even one word per
+    variable fits."""
+    if V1 > MAX_VARS_PLUS_ONE:
+        raise ValueError(f"clause_eval: V+1 = {V1} exceeds the kernel's "
+                         f"{MAX_VARS_PLUS_ONE}-word shared plane")
+    return min(-(-B // 32), MAX_TILE_WORDS, SMEM_BUDGET // (4 * max(V1, 1)))
 
 
 def _check(cvars, csign, assign, clen, ndim: int) -> None:
@@ -63,10 +84,13 @@ def _launch(cvars, csign, assign, clen) -> torch.Tensor:
             and assign.is_contiguous()
             and (clen is None or clen.is_contiguous())):
         raise ValueError("clause_eval: the kernel needs contiguous tensors")
-    if assign.shape[-1] > MAX_VARS_PLUS_ONE:
-        raise ValueError(f"clause_eval: V+1 = {assign.shape[-1]} exceeds the "
-                         f"kernel's {MAX_VARS_PLUS_ONE}-word shared plane")
-    return clause_eval_window_cuda(cvars, csign, assign, clen)
+    tile = eval_tile(assign.shape[1], assign.shape[2])
+    static, _ = eval_smem()
+    if static != EVAL_STATIC_SMEM:
+        raise KernelError(f"clause_eval: the compiled eval kernel holds "
+                          f"{static} static shared bytes, the tile choice "
+                          f"counts {EVAL_STATIC_SMEM}")
+    return clause_eval_window_cuda(cvars, csign, assign, clen, tile)
 
 
 def true_counts_window(cvars: torch.Tensor, csign: torch.Tensor,
@@ -116,4 +140,4 @@ reset_counts()
 
 __all__ = ["true_counts", "true_counts_window", "true_counts_ref",
            "true_counts_window_ref", "MAX_VARS_PLUS_ONE", "ROUTES",
-           "reset_counts"]
+           "eval_tile", "reset_counts"]

@@ -56,7 +56,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWords = 8;       // chains of a block tile: 8 x 32 = 256
 constexpr int kShort = 8;          // longest row that one thread takes
 constexpr int kGroup = 8;          // 32-slot batches of a long row in flight
-constexpr int kMaxSmem = 232448;   // H100: 227 KB of dynamic shared memory
 constexpr int kTargetBlocks = 4 * 132;
 
 __global__ void __launch_bounds__(kThreads)
@@ -126,6 +125,16 @@ __device__ void long_row(const uint32_t* sp, const int32_t* __restrict__ cv,
     if (w < nw && b < B) o[(size_t)b * C] = acc[w];
   }
 }
+
+// Returned by the entry when the tile's planes and the static bytes do not
+// fit the card's shared memory; not a CUDA error code.
+constexpr int kErrSharedMemory = -1;
+
+// eval_kernel's static shared memory is queue[kThreads] and queued[2]
+// below: 1032 bytes declared, 1040 as the compiled kernel holds them; its
+// dynamic planes get the opt-in limit less these.
+// ops.py holds the number as EVAL_STATIC_SMEM, picks the tile from it, and
+// checks it once against clause_eval_smem's reading of the compiled kernel.
 
 __global__ void __launch_bounds__(kThreads)
 eval_kernel(const uint32_t* __restrict__ planes,
@@ -233,28 +242,48 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// eval_kernel's static shared bytes, as compiled, and the card's opt-in
+// limit of shared memory per block. Returns the CUDA error code.
+int clause_eval_smem(int* static_bytes, int* optin_bytes) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, eval_kernel);
+  if (e != cudaSuccess) return e;
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(optin_bytes,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *static_bytes = (int)fa.sharedSizeBytes;
+  return e;
+}
+
 // assign [K,B,V1] bytes 0/1; cvars [K,C,L] int32 (1-based, 0 = padding);
 // csign [K,C,L] bytes 0/1; clen [K,C] int32 row lengths, or null to read
-// whole rows; planes scratch of K*V1*ceil(B/32) words; out [K,B,C] int32.
+// whole rows; planes scratch of K*V1*ceil(B/32) words; out [K,B,C] int32;
+// Wt the chain tile in 32-chain words (ops.py's eval_tile), whose planes,
+// 4*V1*Wt bytes, with eval_kernel's static bytes must fit the opt-in limit
+// (kErrSharedMemory if not; the tile is never clamped here).
 // All contiguous, on the device of `stream`. Returns the CUDA error code of
 // the launches (0 = launched).
 int clause_eval_window(const void* assign, const void* cvars,
                        const void* csign, const void* clen, void* planes,
-                       void* out, int K, int B, int V1, int C, int L,
+                       void* out, int K, int B, int V1, int C, int L, int Wt,
                        void* stream) {
   if (K <= 0 || B <= 0 || C <= 0) return 0;   // nothing to count
-  if (V1 <= 0 || L < 0) return cudaErrorInvalidValue;
   const int W = (B + 31) / 32;
-  const int Wt = std::min(std::min(W, kMaxWords),
-                          kMaxSmem / (V1 * (int)sizeof(uint32_t)));
-  if (Wt <= 0) return cudaErrorInvalidValue;   // one plane > shared memory
+  if (V1 <= 0 || L < 0 || Wt <= 0 || Wt > std::min(W, kMaxWords))
+    return cudaErrorInvalidValue;
+  int static_bytes = 0, optin = 0;
+  cudaError_t e = (cudaError_t)clause_eval_smem(&static_bytes, &optin);
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)V1 * Wt * sizeof(uint32_t);
+  if (smem + (size_t)static_bytes > (size_t)optin) return kErrSharedMemory;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   planes_kernel<<<dim3((V1 + kThreads - 1) / kThreads, W, K), kThreads, 0,
                   s>>>(static_cast<const uint8_t*>(assign),
                        static_cast<uint32_t*>(planes), B, V1, W);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)V1 * Wt * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(eval_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither jax nor anything of the JAX package ``repro``, at run time or in
-their source, and the CDCL worker that the solver pool forks imports no
+their source (the serving tier, the frontend and a spawned shard
+included), and the CDCL worker that the solver pool forks imports no
 torch at all (a child forked after CUDA started must never touch CUDA)."""
 import ast
 import os
@@ -57,6 +58,51 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 print("LOADED:" + ",".join(bad))
+""")
+    assert last == "LOADED:"
+
+
+def test_service_tier_loads_no_jax_and_no_reference():
+    last = _run(r"""
+import sys
+import repro_torch
+repro_torch.set_default_device("cpu")
+from repro_torch import MapRequest, compile
+from repro_torch.core import suite
+from repro_torch.core.workers import WorkerPool
+from repro_torch.launch import map_cgra, serve
+res = compile(MapRequest(dfg=suite.get("srand"), arch="2x2",
+                         service="default"))
+assert res.success and res.service.via == "cold"
+with WorkerPool(workers=2, inline=True) as pool:
+    assert pool.map(suite.get("nw"), map_cgra.arch("2x2")).success
+map_cgra.main(["--arch", "hymba_1_5b", "--cgra", "3x3", "--service",
+               "--device", "cpu"])
+serve.main(["--arch", "hymba_1_5b", "--smoke", "--batch", "1", "--steps",
+            "1", "--device", "cpu", "--offload-cgra", "3x3"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("LOADED:" + ",".join(bad))
+""")
+    assert last == "LOADED:"
+
+
+def test_spawned_shard_loads_no_jax_and_no_reference():
+    """A shard process imports what unpickling its work needs and its
+    initialiser: no jax, nothing of repro."""
+    last = _run(r"""
+import repro_torch
+repro_torch.set_default_device("cpu")
+from repro_torch.core import suite
+from repro_torch.core.cgra import CGRA
+from repro_torch.core.workers import WorkerPool
+with WorkerPool(workers=1) as pool:
+    assert pool.map(suite.get("srand"), CGRA(2, 2)).success
+    loaded = pool._shards[0].submit(
+        eval, "sorted(m for m in __import__('sys').modules"
+              " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))").result()
+print("LOADED:" + ",".join(loaded))
 """)
     assert last == "LOADED:"
 

@@ -431,5 +431,12 @@ def test_serve_main_runs_smoke_on_cpu(capsys):
                 "--batch", "2", "--steps", "3"])
     out = capsys.readouterr().out
     assert "decoded 3 tokens x 2 requests" in out and "req1:" in out
+    serve.main(["--arch", "hymba_1_5b", "--smoke", "--device", "cpu",
+                "--batch", "1", "--steps", "1", "--offload-cgra", "3x3"])
+    out = capsys.readouterr().out
+    for loop in ("rmsnorm_acc", "rope_rotation", "ssd_recurrence"):
+        assert loop in out
+    assert "NO MAPPING" not in out and "decoded 1 tokens" in out
     with pytest.raises(NotImplementedError):
-        serve.main(["--smoke", "--device", "cpu", "--offload-cgra", "4x4"])
+        serve.main(["--smoke", "--device", "cpu", "--offload-cgra", "4x4",
+                    "--offload-guide", "any"])

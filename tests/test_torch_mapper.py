@@ -22,6 +22,7 @@ from repro_torch.core.cgra import CGRA
 from repro_torch.core.encode import EncoderSession
 from repro_torch.core.sat import SAT, portfolio, walksat_torch
 from repro_torch.core.schedule import min_ii
+from repro_torch.core.service import MappingService
 from repro_torch.core.simulator import verify_mapping
 from repro_torch.kernels._cuda import KernelError
 
@@ -131,11 +132,13 @@ def test_timeout_gives_no_ii():
 def test_unported_surfaces_refuse():
     g = suite.get("nw")
     with pytest.raises(NotImplementedError):
-        compile(MapRequest(dfg=g, arch="2x2", service="default"))
-    with pytest.raises(NotImplementedError):
         compile(MapRequest(dfg=g, arch="2x2", sweep_width=4, guide="any"))
     with pytest.raises(NotImplementedError):
         compile(MapRequest(dfg=g, arch="2x2", solver="z3"))
+    # the guide refuses through the service too (the service is ported)
+    with pytest.raises(NotImplementedError):
+        compile(MapRequest(dfg=g, arch="2x2", sweep_width=4, guide="any",
+                           service=MappingService()))
 
 
 def test_racer_kernel_failure_is_reraised(monkeypatch):
