@@ -20,6 +20,16 @@ of 4, with the default solver and with the GPU walk as the solver (one
 ``walk_chunk`` launch per chunk, every ``clause_eval`` launch on the clen
 route).
 
+Then the mapping campaign (``campaign_phase``, after the service tier):
+``repro_torch.launch.campaign`` at its ``--quick`` sizes with its gates
+(shards spawned on cuda whose cells the default solver, host CDCL, maps;
+the guide trained on cuda:0; the 33-cell guided == unguided suite gate),
+the guide's training timed on the card, both walk kernels held against
+their plain versions on every window the guided walks receive, and sha,
+gsm and nw at 4x4 walked with the trained guide choosing windows of 1..8
+IIs (``clause_eval`` and ``walk_chunk`` launches counted per K) and with
+an unresolvable guide name (unguided).
+
 The LM: it holds ``flash_attention`` (both of its kernels: bf16 on the
 tensor cores, f32 on the SIMT kernel) and ``ssd_scan`` (three launches:
 chunk states, the pass over them, chunk outputs; each one's device time is
@@ -59,6 +69,10 @@ WALKSAT_KERNELS = ("sha", "gsm", "nw")
 SERVE_LOAD_KERNELS = ("sha", "gsm", "srand", "bitcount", "nw")
 STORM_CLIENTS = 1000
 SERVICE_DEADLINE_S = 120.0
+# the campaign phase: repro_torch.launch.campaign --quick's sizes (the
+# reference's CI-sized run, at least 200 cells)
+CAMPAIGN_QUICK = dict(seed=0, workers=2, n_random=64, n_mutants=40,
+                      fabrics="2x2,3x3,4x4", eval_cells=40, sweep_width=4)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit rate
 F32_FLOPS = 67e12                # H100 SXM non-tensor f32 rate
@@ -88,7 +102,8 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "bound_ms_per_step", "main_path_steps",
                  "main_path_route_launches", "step_wall_ms",
                  "step_device_busy_share", "earlier", "no_clen_ms",
-                 "bound_no_clen", "phase_ms", "service_path_launches")
+                 "bound_no_clen", "phase_ms", "service_path_launches",
+                 "campaign_path_launches")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
@@ -1260,6 +1275,247 @@ def service_phase(torch, smi):
     return launches
 
 
+def guided_windows(req):
+    """The windows a guided sweep of ``req`` walks up to its expected II,
+    as the sweep forms them (spans from the guide's suggestion, clamped to
+    [1, max(width, 16)]), each stacked as the walk receives it: the
+    session's per-II projections, encoded window by window, through
+    ``pack_cnf_window_np``. Returns [(IIs, HostPack)]."""
+    from repro_torch.core.campaign import cell_features
+    from repro_torch.core.encode import EncoderSession
+    from repro_torch.core.guide import resolve_guide
+    from repro_torch.core.sat import walksat_torch as W
+    from repro_torch.core.sat.portfolio import SolverSession
+    from repro_torch.core.schedule import min_ii
+    cgra, cfg = req.resolved_arch(), req.resolved_config()
+    sug = resolve_guide(cfg.guide).suggest(cell_features(req.dfg, cgra))
+    mii = min_ii(req.dfg, cgra)
+    sess = SolverSession(EncoderSession(req.dfg, cgra, cfg.amo),
+                         method=cfg.solver, seed=cfg.seed)
+    out, base = [], mii
+    while base <= EXPECTED_II_4X4[req.dfg.name]:
+        width = max(1, min(int(sug.span_from(base - mii)),
+                           max(req.sweep_width, 16)))
+        iis = list(range(base, base + width))
+        for ii in iis:
+            sess.ensure_ii(ii)
+        cnfs = [sess.project(ii) for ii in iis]
+        out.append((iis, W.pack_cnf_window_np(
+            cnfs, [sess.host_pack(ii)[0] for ii in iis])))
+        base = iis[-1] + 1
+    return out
+
+
+def guided_window_parity(torch, reqs):
+    """clause_eval (both routes) and walk_chunk (chunks of 1 and 177 steps)
+    against their plain versions, bit for bit, on every window the guided
+    walks of ``reqs`` receive (24 chains, as the sweep's walk runs them).
+    Returns {kernel: [(IIs, K)]} and the set of window widths checked."""
+    from repro_torch.convert import window_from_numpy
+    from repro_torch.core.sat import walksat_torch as W
+    from repro_torch.kernels.clause_eval import (true_counts_window,
+                                                 true_counts_window_ref)
+    from repro_torch.kernels.flip_update import walk_route
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    key = W.walk_key(17)
+    checked, ks = {}, set()
+    for name, req in reqs.items():
+        checked[name] = []
+        for iis, host in guided_windows(req):
+            p = window_from_numpy(host, dev)
+            K, C, L = p.cvars.shape
+            V1 = p.n_vars + 1
+            what = f"{name} 4x4 IIs {iis[0]}..{iis[-1]} (K={K})"
+            a = torch.rand((K, 24, V1), generator=gen, device=dev) < 0.5
+            want = true_counts_window_ref(p.cvars, p.csign, a)
+            for cl in (p.clen, None):
+                if not torch.equal(true_counts_window(p.cvars, p.csign, a,
+                                                      cl), want):
+                    raise AssertionError(
+                        f"clause_eval window != plain on {what} "
+                        f"({'clen' if cl is not None else 'full rows'})")
+            a, tc = _walk_parity(torch, p, a, want, key, 0, 1, what)
+            _walk_parity(torch, p, a, tc, key, 1, 177, what)
+            checked[name].append({"iis": iis, "K": K, "C": C, "L": L,
+                                  "V1": V1, "route": walk_route(C, L, V1)})
+            ks.add(K)
+            del p, a, tc, want
+    emit("parity_guided_windows", windows=checked, B=24, chunks=[1, 177],
+         clause_eval_routes=["clen", "full_rows"], bit_identical=True)
+    return checked, ks
+
+
+def campaign_phase(torch, smi):
+    """The mapping campaign and learned II guidance on the card, in a
+    process that initialised CUDA long before: ``repro_torch.launch.
+    campaign.run`` at the reference's ``--quick`` sizes (corpus, two
+    shards spawned on cuda whose cells the default solver maps with host
+    CDCL, the dataset, the guide trained on cuda:0, the held-out attempts
+    comparison and the 33-cell suite gate) with ``check_gates == []``;
+    ``train_guide`` again on the dataset, its host wall beside its device
+    time (CUDA events around the call, the kernels' busy time from
+    torch.profiler); clause_eval and walk_chunk against their plain
+    versions on each window the guided walks below receive
+    (``guided_window_parity``); sha, gsm and nw at 4x4 with the walk as
+    the solver, guided by the trained ``guide.npz`` (windows of 1..8 IIs
+    through clause_eval and walk_chunk, launches counted per K, every K
+    held above), then with an unresolvable guide name (unguided); and
+    the saved ``.npz`` read back by the numpy guide, suggesting what the
+    live guide suggests on every suite cell. The campaign's timings are
+    host-bound (CDCL in the shards). Returns the walk kernels' launch
+    counts of the guided walk."""
+    import shutil
+    from repro_torch import MapRequest, compile
+    from repro_torch.core import suite
+    from repro_torch.core.arch import arch
+    from repro_torch.core.campaign import CampaignDataset, cell_features
+    from repro_torch.core.guide import (IIGuide, clear_guides, resolve_guide,
+                                        train_guide)
+    from repro_torch.kernels import clause_eval
+    from repro_torch.kernels._cuda import BUILD_DIR
+    from repro_torch.kernels.clause_eval import true_counts_window
+    from repro_torch.kernels.flip_update import reset_counts, walk_chunk
+    from repro_torch.launch import campaign
+    base = BUILD_DIR.parent / "chip_smoke_campaign"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+
+    # -- the campaign at the reference's --quick sizes ---------------------
+    t0 = time.perf_counter()
+    summary = campaign.run(out=str(base), **CAMPAIGN_QUICK)
+    run_s = time.perf_counter() - t0
+    bad = campaign.check_gates(summary)
+    g = summary.get("guide", {})
+    st = summary["campaign"]
+    emit("campaign", device=smi, host_bound=True, sizes=CAMPAIGN_QUICK,
+         corpus=summary["corpus"], dedup_rate=summary["dedup_rate"],
+         corpus_digest=summary["corpus_digest"], cells=st["cells"],
+         cells_per_s=st["cells_per_sec"], campaign_s=st["wall_s"],
+         mapped=st["mapped"], refuted=st["failed"],
+         infeasible=st["infeasible"], witnesses=st["witnesses"],
+         dataset=summary["dataset"], guide=g,
+         eval=summary.get("eval"),
+         suite_gate={k: v for k, v in summary.get("suite_gate", {}).items()
+                     if k != "mismatches"},
+         run_s=run_s, gates_failed=bad)
+    if bad:
+        raise AssertionError("campaign gates: " + "; ".join(bad))
+    if g.get("device") != "cuda:0":
+        raise AssertionError(f"train_guide ran on {g.get('device')}, not "
+                             f"cuda:0")
+
+    # -- guide training on the card: wall vs device time ------------------
+    records = list(CampaignDataset(str(base / "cells")))
+    if len(records) != st["cells"]:
+        raise AssertionError(f"the dataset read back {len(records)} of "
+                             f"{st['cells']} cells")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    _, m = train_guide(records, seed=0)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if m["device"] != "cuda:0":
+        raise AssertionError(f"train_guide's parameters on {m['device']}")
+    prof = _profile(torch, lambda: train_guide(records, seed=0), "gemm")
+    steps = 300 * -(-m["n_train"] // 256)
+    emit("guide_train", device=smi, n_train=m["n_train"],
+         n_heldout=m["n_heldout"], epochs=300, adam_steps=steps,
+         param_device=m["device"], wall_s=wall_s,
+         event_s=start.elapsed_time(end) / 1e3,
+         device_busy_ms=prof["device_ms"],
+         device_busy_share=prof["device_ms"] / 1e3 / wall_s,
+         kernel_launches=prof["kernel_launches"],
+         launches_per_step=prof["kernel_launches"] / steps,
+         wall_us_per_step=wall_s * 1e6 / steps,
+         gemm_ms=prof["gemm_ms"], top_kernels=prof["top_kernels"],
+         hit1=m["hit1"], baseline_hit1=m["baseline_hit1"],
+         final_loss=m["final_loss"])
+
+    # -- the saved checkpoint suggests what the live guide suggests -------
+    live = resolve_guide("campaign")
+    saved = IIGuide.load(summary["guide_path"])
+    cells = [(n, f) for n in suite.names() for f in ("2x2", "3x3", "4x4")]
+    differ = []
+    for name, fabric in cells:
+        x = cell_features(suite.get(name), arch(fabric))
+        if live.suggest(x) != saved.suggest(x):
+            differ.append((name, fabric))
+    if differ:
+        raise AssertionError(f"guide.npz suggests otherwise on {differ}")
+
+    # -- the guided walk: windows of 1..8 IIs on the card -----------------
+    # first both walk kernels against their plain versions on each window
+    # the guided walks will receive (outside the counted run)
+    reqs = {name: MapRequest(dfg=suite.get(name), arch="4x4", sweep_width=4,
+                             solver="walksat", guide=summary["guide_path"])
+            for name in WALKSAT_KERNELS}
+    held, held_k = guided_window_parity(torch, reqs)
+    clause_eval.reset_counts()
+    reset_counts()
+    guided = {}
+    for name, req in reqs.items():
+        t0 = time.perf_counter()
+        res = compile(req)
+        secs = time.perf_counter() - t0
+        gd = res.guidance or {}
+        win = [a for a in res.attempts if a.ii == res.ii]
+        if res.ii != EXPECTED_II_4X4[name] or not gd.get("used") or \
+                not win or win[0].via != "walksat":
+            raise AssertionError(f"guided walk {name}: II {res.ii} "
+                                 f"(expected {EXPECTED_II_4X4[name]}), "
+                                 f"guidance {gd}")
+        if gd["spans"] != [len(w["iis"]) for w in held[name]]:
+            raise AssertionError(f"guided walk {name}: spans {gd['spans']}, "
+                                 f"parity held windows {held[name]}")
+        guided[name] = {"ii": res.ii, "mii": res.mii,
+                        "spans": gd["spans"], "offset": gd["offset"],
+                        "hopeless": gd["hopeless"],
+                        "attempts": len(res.attempts), "seconds": secs}
+    launches = {"clause_eval_window": true_counts_window.launches,
+                "walk_chunk": walk_chunk.launches}
+    per_k = {"clause_eval_window": dict(true_counts_window.k_launches),
+             "walk_chunk": dict(walk_chunk.k_launches)}
+    routes = {"clause_eval_window": dict(true_counts_window.route_launches),
+              "walk_chunk": dict(walk_chunk.route_launches)}
+    if not all(launches.values()):
+        raise AssertionError(f"the guided walks launched no kernel: "
+                             f"{launches}")
+    unheld = {k for ks in per_k.values() for k in ks} - held_k
+    if unheld:
+        raise AssertionError(f"the guided walks launched at window widths "
+                             f"{sorted(unheld)}, not held against the plain "
+                             f"versions (held: {sorted(held_k)})")
+    # the 4x4 windows fit a block's shared memory at every K, and the walk
+    # evaluates every window on its row lengths
+    if routes["walk_chunk"]["global"] or \
+            routes["clause_eval_window"]["full_rows"]:
+        raise AssertionError(f"guided walk off its expected routes: "
+                             f"{routes}")
+
+    # -- an unresolvable guide name runs unguided --------------------------
+    unguided = {}
+    for name in WALKSAT_KERNELS:
+        res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
+                                 sweep_width=4, solver="walksat",
+                                 guide="no-such-guide"))
+        if res.ii != EXPECTED_II_4X4[name] or \
+                res.guidance != {"guide": "no-such-guide", "used": False}:
+            raise AssertionError(f"unresolvable guide {name}: II {res.ii}, "
+                                 f"guidance {res.guidance}")
+        unguided[name] = {"ii": res.ii, "attempts": len(res.attempts)}
+    emit("campaign_guided_walk", device=smi, cgra="4x4", solver="walksat",
+         guided=guided, launches=launches, launches_per_k=per_k,
+         route_launches=routes, unresolvable_guide=unguided,
+         npz_matches_live_guide_cells=len(cells))
+    clear_guides()
+    shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
 def _counters():
     from repro_torch.kernels.clause_eval import true_counts, true_counts_window
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1336,7 +1592,9 @@ def _profile(torch, fn, match):
     """Device time of ``fn`` from torch.profiler: the kernels' total time
     and launch count, the time of the kernels whose name holds ``match``,
     and the operators that launched the most device time (self time of
-    the kernels each launched directly)."""
+    the kernels each launched directly). User-annotated ranges that the
+    profiler also puts on the device timeline (``Optimizer.step#...``)
+    are spans, not kernels, and are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -1349,7 +1607,8 @@ def _profile(torch, fn, match):
             fn()
             torch.cuda.synchronize()
         rows = prof.key_averages()
-        kernels = [e for e in rows if e.device_type == cuda]
+        kernels = [e for e in rows if e.device_type == cuda
+                   and not getattr(e, "is_user_annotation", False)]
         if kernels:
             break
     else:
@@ -1511,6 +1770,10 @@ def main() -> int:
     times["clause_eval_window"]["service_path_launches"] = \
         service["clause_eval_window"]
     times["walk_chunk"]["service_path_launches"] = service["walk_chunk"]
+    torch.cuda.empty_cache()
+    guided = campaign_phase(torch, smi)
+    for name in ("clause_eval_window", "walk_chunk"):
+        times[name]["campaign_path_launches"] = guided[name]
     torch.cuda.empty_cache()
     lm_times = lm_kernel_phase(torch)
     flash_edge_phase(torch)

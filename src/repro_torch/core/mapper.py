@@ -57,14 +57,14 @@ class MapperConfig:
     # flipped racer wins). CDCL sessions only; staged like the WalkSAT
     # racer so easy windows never pay for it.
     race_flip: bool = True
-    # learned II guidance (repro.core.guide in the JAX package; not ported,
-    # so map_sweep raises NotImplementedError when it is set): a registered
-    # guide name or
-    # an .npz checkpoint path. Sweep-only and *sound* — the prediction
-    # chooses window extents (how many candidate IIs encode/race per
-    # round), never which IIs are tried: the guided final II is identical
-    # to the unguided one on every input. A string (not a guide object) so
-    # configs stay hashable for the service cache and the store key.
+    # learned II guidance (repro_torch.core.guide): a registered guide name
+    # or an .npz checkpoint path (either package's). Sweep-only and *sound*
+    # — the prediction chooses window extents (how many candidate IIs
+    # encode/race per round), never which IIs are tried: the guided final
+    # II is identical to the unguided one on every input. A name that
+    # resolves to nothing runs unguided (MappingResult.guidance records
+    # "used": False). A string (not a guide object) so configs stay
+    # hashable for the service cache and the store key.
     guide: Optional[str] = None
 
 

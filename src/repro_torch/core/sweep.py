@@ -109,12 +109,32 @@ def map_sweep(dfg: DFG, cgra: CGRA, cfg: Optional[MapperConfig] = None,
         sess = SolverSession(enc_session, method=cfg.solver, seed=cfg.seed,
                              max_learnt=cfg.max_learnt)
 
-    # learned window-extent guidance (repro.core.guide in the JAX package)
-    # is not ported yet: refuse it rather than map unguided behind the
-    # caller's back
-    if cfg.guide:
-        raise NotImplementedError(
-            "MapperConfig.guide is not ported to repro_torch yet")
+    # learned window-extent guidance (cfg.guide -> repro_torch.core.guide).
+    # The suggestion only ever picks how many candidate IIs the next window
+    # spans; every II from MII upward still enters some window in
+    # ascending order and the winner scan below still demands a proven
+    # refutation of every lower candidate — so guidance cannot change the
+    # final II, only the wall-clock spent finding it. Any guide failure
+    # (unresolvable name, feature extraction, a garbage suggestion) falls
+    # back to the unguided fixed width, recorded as {"used": False}.
+    sug = None
+    if cfg.guide and sweep_width > 1:
+        try:
+            from .campaign import cell_features
+            from .guide import resolve_guide
+            g = resolve_guide(cfg.guide)
+            if g is not None:
+                sug = g.suggest(cell_features(dfg, cgra))
+        except Exception:
+            sug = None
+        if sug is not None:
+            res.guidance = {"guide": cfg.guide, "used": True,
+                            "offset": int(sug.offset),
+                            "order": [int(o) for o in sug.order],
+                            "hopeless": float(sug.hopeless),
+                            "spans": []}
+        else:
+            res.guidance = {"guide": cfg.guide, "used": False}
 
     base = mii
     while base <= max_ii:
@@ -126,7 +146,15 @@ def map_sweep(dfg: DFG, cgra: CGRA, cfg: Optional[MapperConfig] = None,
             # formula is UNSAT, no candidate II can ever map
             note_pruned_ii(sess, base, res.attempts)
             break
-        window = list(range(base, min(base + sweep_width - 1, max_ii) + 1))
+        width = sweep_width
+        if sug is not None:
+            try:
+                width = int(sug.span_from(base - mii))
+            except Exception:
+                width = sweep_width
+            width = max(1, min(width, max(sweep_width, 16)))
+            res.guidance["spans"].append(width)
+        window = list(range(base, min(base + width - 1, max_ii) + 1))
         # replay recorded UNSAT cores up front: those IIs never enter the
         # window, so its parallelism is spent on undecided candidates only
         iis: List[int] = []

@@ -104,6 +104,9 @@ def true_counts_window(cvars: torch.Tensor, csign: torch.Tensor,
     out = _launch(cvars, csign, assign, clen)
     true_counts_window.launches += 1
     true_counts_window.route_launches[_route(clen)] += 1
+    K = cvars.shape[0]
+    true_counts_window.k_launches[K] = \
+        true_counts_window.k_launches.get(K, 0) + 1
     return out
 
 
@@ -132,10 +135,11 @@ def reset_counts() -> None:
     for f in (true_counts_window, true_counts):
         f.launches = 0
         f.route_launches = dict.fromkeys(ROUTES, 0)
+    true_counts_window.k_launches = {}
 
 
-# kernel launches made through each wrapper, also by route (the CPU route
-# counts none)
+# kernel launches made through each wrapper, also by route, and the window
+# wrapper's by the window's K (the CPU route counts none)
 reset_counts()
 
 __all__ = ["true_counts", "true_counts_window", "true_counts_ref",

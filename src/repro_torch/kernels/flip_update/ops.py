@@ -96,7 +96,8 @@ def walk_chunk(cvars: torch.Tensor, ovars: torch.Tensor, osign: torch.Tensor,
     [K,V+1,O] bool; assign [K,B,V+1] bool; tc [K,B,C] int32; ``key`` two
     uint32 as Python ints; ``step0`` the walk's global step index at the
     start of the chunk. Returns (assign', tc'). A CUDA launch counts one
-    launch, one on its route and ``n_steps`` steps.
+    launch, one on its route, one for its window's K and ``n_steps``
+    steps.
     """
     args = {"cvars": cvars, "ovars": ovars, "osign": osign,
             "assign": assign, "tc": tc}
@@ -137,6 +138,7 @@ def walk_chunk(cvars: torch.Tensor, ovars: torch.Tensor, osign: torch.Tensor,
                         route == "shared")
         walk_chunk.launches += 1
         walk_chunk.route_launches[route] += 1
+        walk_chunk.k_launches[K] = walk_chunk.k_launches.get(K, 0) + 1
         walk_chunk.steps += n_steps
     return assign, tc
 
@@ -146,11 +148,12 @@ def reset_counts() -> None:
     flip_update.launches = 0
     walk_chunk.launches = 0
     walk_chunk.route_launches = dict.fromkeys(ROUTES, 0)
+    walk_chunk.k_launches = {}
     walk_chunk.steps = 0
 
 
-# kernel launches made through the wrappers, walk_chunk's also by route and
-# in walk steps (the CPU route counts none)
+# kernel launches made through the wrappers, walk_chunk's also by route, by
+# the window's K and in walk steps (the CPU route counts none)
 reset_counts()
 
 __all__ = ["flip_update", "flip_update_ref", "walk_chunk", "walk_chunk_ref",

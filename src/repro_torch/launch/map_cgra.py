@@ -22,9 +22,9 @@ Every mapping is served through the unified ``compile(MapRequest(...))``
 front door (``repro_torch.core.api``). The loop bodies are torch
 functions, traced by ``torch.fx`` (``repro_torch.core.frontend``) into the
 DFGs that the JAX package's jaxpr frontend makes of its own. ``--guide``
-(learned II guidance) is not ported yet and raises
-``NotImplementedError``; ``--device`` picks where a racing walk runs
-(``cuda`` by default).
+(a registered guide name or a ``repro_torch.launch.campaign`` ``.npz``)
+guides the ``--sweep`` runs' window extents, never their final II;
+``--device`` picks where a racing walk runs (``cuda`` by default).
 """
 from __future__ import annotations
 
@@ -120,15 +120,14 @@ def main(argv=None) -> None:
                     help="also run the parallel II-sweep engine with window "
                          "width K and report both modes side-by-side")
     ap.add_argument("--guide", default=None, metavar="NAME_OR_NPZ",
-                    help="learned II guidance for the sweep runs; not "
-                         "ported yet (raises NotImplementedError)")
+                    help="learned II guidance for the sweep runs: a "
+                         "registered guide name or an .npz checkpoint from "
+                         "repro_torch.launch.campaign (window seeding only "
+                         "— never changes the final II)")
     ap.add_argument("--device", default=None,
                     help="where a racing walk runs: cuda (the default) or "
                          "cpu")
     args = ap.parse_args(argv)
-    if args.guide:
-        raise NotImplementedError("--guide: learned II guidance is not "
-                                  "ported to repro_torch yet")
     if args.device is not None:
         device_mod.set_default_device(args.device)
     cfg = get_config(args.arch)

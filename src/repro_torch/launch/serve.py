@@ -14,8 +14,9 @@ the published widths unless ``--smoke`` is given.
 ``--offload-cgra SIZE`` first maps the architecture's representative
 scalar inner loops (``launch/map_cgra.py::loops_for``, traced by the
 torch.fx frontend) onto a CGRA sidecar through the process-wide
-:class:`repro_torch.core.service.MappingService`. ``--offload-guide`` (learned
-II guidance) is not ported yet and raises ``NotImplementedError``.
+:class:`repro_torch.core.service.MappingService`. ``--offload-guide`` (a
+registered guide name or a ``repro_torch.launch.campaign`` ``.npz``) maps
+them with a guided sweep of width 4; guidance never changes a final II.
 
 :class:`CompileFrontDoor` is the mapping-as-a-service tier: an asyncio
 front door that accepts ``compile``-shaped requests from thousands of
@@ -282,32 +283,35 @@ def offload_report(cfg, cgra_name: str, guide: Optional[str] = None,
     one ``compile(MapRequest(...))`` per loop, ``service="default"``
     resolving to the same process-wide pool every entry point shares. The
     fabric name takes the full grammar (``4x4``, ``4x4-torus:r8``, ...).
-    ``guide`` (learned II guidance) is not ported yet: anything but
-    ``None`` raises ``NotImplementedError``. Returns ``{loop name:
-    MappingResult}``."""
+    ``guide`` (a registered guide name or campaign ``.npz`` checkpoint)
+    seeds the sweep windows when ``sweep_width > 1`` — learned guidance
+    never changes the final II, only where the sweep starts looking.
+    Returns ``{loop name: MappingResult}``."""
     from ..core.api import MapRequest, compile as compile_request
     from ..core.arch import arch
     from ..core.frontend import trace_loop_body
     from ..core.service import get_service
     from .map_cgra import loops_for
 
-    if guide:
-        raise NotImplementedError("offload guidance (--offload-guide) is not "
-                                  "ported to repro_torch yet")
     fabric = arch(cgra_name)
     mode = f", sweep k={sweep_width}" if sweep_width > 1 else ""
+    if guide:
+        mode = f", guided sweep k={sweep_width}"
     results = {}
     print(f"CGRA offload ({fabric}) via MappingService{mode}:")
     for name, fn, n_carry, loads in loops_for(cfg):
         g, _ = trace_loop_body(fn, n_carry=n_carry, loads=loads, name=name)
         r = compile_request(MapRequest(dfg=g, arch=fabric, timeout_s=60,
-                                       service="default",
+                                       service="default", guide=guide,
                                        sweep_width=sweep_width))
         results[name] = r
         status = f"II={r.ii}" if r.success else "NO MAPPING"
+        guid = r.guidance
+        gtxt = (f" guide_offset={guid['offset']}"
+                if guid and guid.get("used") else "")
         print(f"  {name:16s} {status} via={r.service.via} "
               f"pruned={r.service.iis_pruned} "
-              f"[{r.service.request_time*1e3:.1f}ms]")
+              f"[{r.service.request_time*1e3:.1f}ms]{gtxt}")
     print(f"  service: {get_service().describe()}")
     return results
 
@@ -326,21 +330,22 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "CGRA sidecar (e.g. 4x4) through the shared "
                          "MappingService before serving")
     ap.add_argument("--offload-guide", default=None, metavar="NAME_OR_NPZ",
-                    help="learned II guidance for the offload mappings; "
-                         "not ported yet (raises NotImplementedError)")
+                    help="learned II guidance for the offload mappings (a "
+                         "registered guide name or a repro_torch.launch."
+                         "campaign .npz checkpoint); implies a "
+                         "sweep_width=4 guided sweep per loop, final IIs "
+                         "unchanged by contract")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.offload_guide:
-        raise NotImplementedError("--offload-guide: learned II guidance is "
-                                  "not ported to repro_torch yet")
     if args.device is not None:
         device_mod.set_default_device(args.device)
     dev = device_mod.resolve_device()
     cfg = get_config(args.arch)
     if args.offload_cgra:
-        offload_report(cfg, args.offload_cgra)
+        offload_report(cfg, args.offload_cgra, guide=args.offload_guide,
+                       sweep_width=4 if args.offload_guide else 1)
     if args.smoke:
         cfg = cfg.smoke()
     lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))

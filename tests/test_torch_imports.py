@@ -1,8 +1,10 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the JAX package ``repro``, at run time or in
-their source (the serving tier, the frontend and a spawned shard
-included), and the CDCL worker that the solver pool forks imports no
-torch at all (a child forked after CUDA started must never touch CUDA)."""
+neither jax (nor optax) nor anything of the JAX package ``repro``, at run
+time or in their source (the serving tier, the frontend, a spawned shard,
+the campaign and a guided compile included), and the CDCL worker that the
+solver pool forks imports no torch at all (a child forked after CUDA
+started must never touch CUDA), nor do the numpy guide, the campaign
+engine and the static analysis."""
 import ast
 import os
 import subprocess
@@ -119,6 +121,47 @@ print("TORCH:" + ",".join(sorted(m for m in sys.modules
     assert last == "TORCH:"
 
 
+def test_guide_campaign_and_analysis_import_no_torch():
+    """The numpy guide, the campaign engine and the static analysis load
+    neither torch nor jax nor the reference: the guide runs inside shards
+    before the CDCL pool forks, and torch is imported by train_guide."""
+    last = _run(r"""
+import sys
+import repro_torch.core.guide
+import repro_torch.core.campaign
+import repro_torch.analysis
+import repro_torch.analysis.rules
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "repro"))
+print("LOADED:" + ",".join(bad))
+""")
+    assert last == "LOADED:"
+
+
+def test_guided_compile_loads_no_jax_and_no_cuda():
+    """A guided compile with the walk, through the campaign launcher's
+    imports: no jax, nothing of repro, and CUDA never initialised."""
+    last = _run(r"""
+import sys
+import repro_torch
+repro_torch.set_default_device("cpu")
+import repro_torch.launch.campaign
+from repro_torch import MapRequest, compile
+from repro_torch.core import suite
+from repro_torch.core.guide import init_guide, register_guide
+register_guide("g", init_guide(seed=1))
+res = compile(MapRequest(dfg=suite.get("srand"), arch="2x2", sweep_width=4,
+                         solver="walksat", guide="g"))
+assert res.success and res.guidance["used"], res.guidance
+import torch
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "repro"))
+print("LOADED:" + ",".join(bad) + ":" + str(torch.cuda.is_initialized()))
+""")
+    assert last == "LOADED::False"
+
+
 def _sources():
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -129,7 +172,7 @@ def _sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "optax", "repro")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

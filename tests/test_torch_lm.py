@@ -437,6 +437,12 @@ def test_serve_main_runs_smoke_on_cpu(capsys):
     for loop in ("rmsnorm_acc", "rope_rotation", "ssd_recurrence"):
         assert loop in out
     assert "NO MAPPING" not in out and "decoded 1 tokens" in out
-    with pytest.raises(NotImplementedError):
-        serve.main(["--smoke", "--device", "cpu", "--offload-cgra", "4x4",
-                    "--offload-guide", "any"])
+    # --offload-guide maps with a guided sweep of width 4 (a name that
+    # resolves to nothing runs unguided, with the same IIs)
+    serve.main(["--arch", "hymba_1_5b", "--smoke", "--device", "cpu",
+                "--batch", "1", "--steps", "1", "--offload-cgra", "3x3",
+                "--offload-guide", "no-such-guide"])
+    out = capsys.readouterr().out
+    assert "guided sweep k=4" in out and "NO MAPPING" not in out
+    for loop in ("rmsnorm_acc", "rope_rotation", "ssd_recurrence"):
+        assert loop in out

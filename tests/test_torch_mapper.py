@@ -132,12 +132,10 @@ def test_timeout_gives_no_ii():
 def test_unported_surfaces_refuse():
     g = suite.get("nw")
     with pytest.raises(NotImplementedError):
-        compile(MapRequest(dfg=g, arch="2x2", sweep_width=4, guide="any"))
-    with pytest.raises(NotImplementedError):
         compile(MapRequest(dfg=g, arch="2x2", solver="z3"))
-    # the guide refuses through the service too (the service is ported)
+    # the z3 backend refuses through the service too
     with pytest.raises(NotImplementedError):
-        compile(MapRequest(dfg=g, arch="2x2", sweep_width=4, guide="any",
+        compile(MapRequest(dfg=g, arch="2x2", solver="z3",
                            service=MappingService()))
 
 

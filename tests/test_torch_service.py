@@ -139,10 +139,14 @@ def test_map_loop_service_param_routes_through_service():
     assert r1.ii == r2.ii and svc.stats.requests == 2
 
 
-def test_guide_still_raises_through_the_service():
-    with pytest.raises(NotImplementedError, match="guide"):
-        MappingService().map(suite.get("srand"), CGRA(3, 3),
-                             MapperConfig(guide="any"), sweep_width=2)
+def test_unresolvable_guide_runs_unguided_through_the_service():
+    svc = MappingService()
+    r = svc.map(suite.get("srand"), CGRA(3, 3), MapperConfig(guide="any"),
+                sweep_width=2)
+    base = svc.map(suite.get("srand"), CGRA(3, 3), MapperConfig(),
+                   sweep_width=2)
+    assert r.success and r.ii == base.ii
+    assert r.guidance == {"guide": "any", "used": False}
 
 
 # ------------------------------------------------------------ mapping cache
