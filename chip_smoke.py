@@ -44,13 +44,32 @@ the ring buffer, 32 greedy decode steps; 32 tensor-core flash launches per
 prefill), and holds flash against blockwise prefill on the same weights
 and tokens, gated in f32 and reported in bf16.
 
+The MoE family and the int8 KV cache: it serves deepseek_moe_16b at its
+published widths (28 layers, 64 routed experts top-6 plus 2 shared, vocab
+102400; 33.76 GB of seeded bf16 weights) with flash prefill, the same
+4 x 2048 prompts and 32 decode steps (gates: 28 tensor-core flash
+launches, no layout copies, finite logits), profiles a prefill and a
+decode step, and reuses those weights, never a second copy: flash
+against blockwise in bf16 (reported), the int8 cache fed the bf16-cache
+run's tokens (gates: ``quantize_kv`` on the card bit-identical to the
+CPU, int8 leaves with f32 scales, every step's softmax within total
+variation 0.05 of the bf16 cache's), and one layer in f32 on 4 x 2048
+tokens (gates: ``moe_einsum`` and ``moe_sort`` within 2e-4 of each other,
+the routing identical to the CPU's, the output within 2e-4 of it). Then
+flash against blockwise on 4 full-width layers in f32, gated at 1e-3 of
+the largest logit. ``flash_attention`` is also timed at deepseek's
+attention shape (MHA, D = 128), and ``sharded_chain_batch`` is drawn on
+cuda:0 and held to the CPU's draw.
+
 Every phase prints one JSON line; the line before the last is the
 ``kernels`` JSON, the last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without that line, as does a machine without
 CUDA or a directory without the port's sources.
 """
 import asyncio
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -82,6 +101,8 @@ REPS = 50
 ATTN_SHAPE = dict(B=4, Hq=25, Hkv=5, S=2048, D=64)
 # minitron_8b's attention (the dense configs all have D = 128), causal
 ATTN_SHAPE_D128 = dict(B=4, Hq=32, Hkv=8, S=2048, D=128)
+# deepseek_moe_16b's prefill attention: MHA, 16 heads of 128, no window
+ATTN_SHAPE_MOE = dict(B=4, Hq=16, Hkv=16, S=2048, D=128)
 SSD_SHAPE = dict(b=4, s=2048, h=32, p=100, n=16)
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, AGREE_STEPS = 4, 2048, 32, 8
 FLASH_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
@@ -103,7 +124,8 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "main_path_route_launches", "step_wall_ms",
                  "step_device_busy_share", "earlier", "no_clen_ms",
                  "bound_no_clen", "phase_ms", "service_path_launches",
-                 "campaign_path_launches")
+                 "campaign_path_launches", "moe_path_launches",
+                 "moe_shape")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
@@ -798,13 +820,61 @@ def flash_edge_phase(torch):
          route_launches=flash_attention.route_launches)
 
 
+def flash_causal_row(torch, gen, shape, arch):
+    """flash_attention at ``arch``'s prefill shape in bf16 (causal, no
+    window, swapped [B,S,H,D] views) against attention_ref, timed beside
+    its plain version, its bound and SDPA's causal path; every launch on
+    the tensor-core route. Returns the row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    dev = torch.device("cuda", 0)
+    B, Hq, Hkv, S, D = (shape[k] for k in ("B", "Hq", "Hkv", "S", "D"))
+    tol = FLASH_TOL["torch.bfloat16"]
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, ok = _close(got, want, tol, tol)
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention bf16 {arch}: max abs err "
+                             f"{err} beyond atol=rtol={tol}")
+    del got
+
+    def lib_causal():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    lib_err, _ = _close(lib_causal(), want, tol, tol)
+    del want
+    row = {"arch": arch,
+           "ms": cuda_ms(torch, lambda: flash_attention(q, k, v,
+                                                        causal=True)),
+           "plain_ms": cuda_ms(torch, lambda: attention_ref(q, k, v,
+                                                            causal=True),
+                               reps=10),
+           "library_ms": cuda_ms(torch, lib_causal),
+           "bound": flash_bound_ms(B, Hq, Hkv, S, D, 0, q.element_size(),
+                                   BF16_TENSOR_FLOPS),
+           "max_abs_err": err, "library_max_abs_err": lib_err,
+           "shape": f"q [{B},{Hq},{S},{D}] k/v [{B},{Hkv},{S},{D}] bfloat16 "
+                    f"window 0 causal, swapped [B,S,H,D] views",
+           "library": "scaled_dot_product_attention(is_causal=True)"}
+    emit("flash_attention", tolerance=tol, **row)
+    _check_route(flash_attention, before, "tensor_core")
+    return row
+
+
 def lm_kernel_phase(torch):
     """flash_attention and ssd_scan against their plain versions at
-    hymba_1_5b's shapes (and bf16 attention at minitron_8b's D = 128),
+    hymba_1_5b's shapes (and bf16 attention at minitron_8b's and
+    deepseek_moe_16b's D = 128),
     with their times, bounds and (for attention) the library call's time.
     Returns the kernels-line entries, which hold the shapes the served
     model gives them: bf16 with the 1024 window for attention, bf16 x/B/C
-    at the config's chunk of 256 for the scan."""
+    at the config's chunk of 256 for the scan; and deepseek_moe_16b's
+    attention row (MHA, D = 128, causal)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
@@ -864,41 +934,11 @@ def lm_kernel_phase(torch):
                 out["flash_attention"] = row
             del got, want
         _check_route(flash_attention, before, FLASH_ROUTE[str(dtype)])
-    # minitron_8b's attention in bf16: D = 128, causal, no window; the
-    # library call is SDPA's own causal path
-    B, Hq, Hkv, S, D = (ATTN_SHAPE_D128[k]
-                        for k in ("B", "Hq", "Hkv", "S", "D"))
-    tol = FLASH_TOL["torch.bfloat16"]
-    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
-               .to(torch.bfloat16).transpose(1, 2) for h in (Hq, Hkv, Hkv))
-    got = flash_attention(q, k, v, causal=True)
-    want = attention_ref(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err, ok = _close(got, want, tol, tol)
-    if not ok or not torch.isfinite(got).all():
-        raise AssertionError(f"flash_attention bf16 D=128: max abs err {err} "
-                             f"beyond atol=rtol={tol}")
-    del got
-
-    def lib_causal():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-    lib_err, _ = _close(lib_causal(), want, tol, tol)
-    del want
-    before = dict(flash_attention.route_launches)
-    emit("flash_attention", tolerance=tol, arch="minitron_8b",
-         ms=cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True)),
-         plain_ms=cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True),
-                          reps=10),
-         library_ms=cuda_ms(torch, lib_causal),
-         bound=flash_bound_ms(B, Hq, Hkv, S, D, 0, q.element_size(),
-                              BF16_TENSOR_FLOPS),
-         max_abs_err=err, library_max_abs_err=lib_err,
-         shape=f"q [{B},{Hq},{S},{D}] k/v [{B},{Hkv},{S},{D}] bfloat16 "
-               f"window 0 causal, swapped [B,S,H,D] views",
-         library="scaled_dot_product_attention(is_causal=True)")
-    del q, k, v
-    _check_route(flash_attention, before, "tensor_core")
+    # minitron_8b's attention (GQA) and deepseek_moe_16b's (MHA) in bf16:
+    # D = 128, causal, no window; the library call is SDPA's own causal path
+    flash_causal_row(torch, gen, ATTN_SHAPE_D128, "minitron_8b")
+    out["flash_attention_moe"] = flash_causal_row(torch, gen, ATTN_SHAPE_MOE,
+                                                  "deepseek_moe_16b")
     emit("flash_routes", route_launches=flash_attention.route_launches,
          layout_copies=flash_attention.layout_copies)
     b, s, h, p, n = (SSD_SHAPE[k] for k in ("b", "s", "h", "p", "n"))
@@ -1527,27 +1567,37 @@ def _counters():
             "ssd_scan": ssd_scan}
 
 
-def serve_phase(torch):
-    """The LM main path: hymba_1_5b at its published widths in bf16 with
+def serve_prompts(torch, vocab, seed=1):
+    dev = torch.device("cuda", 0)
+    return torch.randint(0, vocab, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed), device=dev)
+
+
+def serve_phase(torch, arch, smi):
+    """A main path of the LM: ``arch`` at its published widths in bf16 with
     attn_impl="flash", weights from LM.init (seeded), 4 prompts of 2048
-    seeded tokens prefilled into the ring buffer (min(2048, 1024) slots),
-    then 32 greedy decode steps. Returns the launch counts of this run."""
+    seeded tokens prefilled into the ring buffer (2048 slots, or the
+    config's window), then 32 greedy decode steps; then where its time
+    goes (``serve_profile``). Gates: one flash launch per layer, all on
+    the tensor cores, no layout copies, finite logits. Returns (the LM,
+    the prompts, the serve result, the launch counts of the run)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import reset_counts
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models.model import LM
     dev = torch.device("cuda", 0)
-    cfg = get_config("hymba_1_5b").replace(attn_impl="flash")
+    cfg = get_config(arch).replace(attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     param_bytes = sum(t.numel() * t.element_size() for t in lm.parameters())
-    gen = torch.Generator(device=dev).manual_seed(1)
-    serve_lm(lm, torch.randint(0, cfg.vocab, (1, 256), generator=gen,
-                               device=dev), 2)             # warm-up
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=gen, device=dev)
+    serve_lm(lm, serve_prompts(torch, cfg.vocab, seed=2)[:1, :256],
+             2)                                            # warm-up
+    prompts = serve_prompts(torch, cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
     for f in counters.values():
@@ -1559,7 +1609,7 @@ def serve_phase(torch):
     routes = dict(flash.route_launches)
     if launches["flash_attention"] != cfg.n_layers or \
             routes["tensor_core"] != cfg.n_layers:
-        raise AssertionError(f"prefill launched flash_attention "
+        raise AssertionError(f"{cfg.name} prefill launched flash_attention "
                              f"{launches['flash_attention']} times ({routes}),"
                              f" expected one per layer ({cfg.n_layers}), all "
                              f"on the tensor cores")
@@ -1568,13 +1618,17 @@ def serve_phase(torch):
                              f"{flash.layout_copies} operands before flash")
     finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits)
     if not finite or res.tokens.shape != (SERVE_BATCH, SERVE_STEPS):
-        raise AssertionError("serve: non-finite logits or wrong token shape")
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
-         requests=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-         ring_window=min(SERVE_PROMPT, cfg.attn_window),
+        raise AssertionError(f"{cfg.name} serve: non-finite logits or wrong "
+                             f"token shape")
+    moe = dict(n_experts=cfg.n_experts, n_shared_experts=cfg.n_shared_experts,
+               top_k=cfg.top_k, moe_impl=cfg.moe_impl) if cfg.n_experts else {}
+    emit("serve", arch=cfg.name, nvidia_smi=smi, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         attn_impl=cfg.attn_impl, **moe, requests=SERVE_BATCH,
+         prompt_len=SERVE_PROMPT,
+         ring_window=min(SERVE_PROMPT, cfg.attn_window or SERVE_PROMPT),
          decode_steps=SERVE_STEPS, param_bytes=param_bytes,
-         init_s=init_s,
+         init_s=init_s, init_max_memory_allocated=init_peak,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          prefill_s=res.prefill_s,
          prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
@@ -1584,8 +1638,7 @@ def serve_phase(torch):
          flash_layout_copies=flash.layout_copies, logits_finite=finite,
          first_tokens=res.tokens[:, :8].tolist())
     serve_profile(torch, lm, prompts)
-    return {"flash_attention": launches["flash_attention"],
-            "ssd_scan": launches["ssd_scan"]}
+    return lm, prompts, res, launches
 
 
 def _profile(torch, fn, match):
@@ -1657,7 +1710,7 @@ def serve_profile(torch, lm, prompts, reps=3):
                        "flash_fwd_kernel")
     flash_ms = prefill["flash_fwd_kernel_ms"]
     wall_d, wall_p = statistics.median(walls), min(walls_p)
-    emit("serve_profile", batch=prompts.shape[0],
+    emit("serve_profile", arch=lm.cfg.name, batch=prompts.shape[0],
          prompt_len=prompts.shape[1],
          decode_step_wall_ms=wall_d,
          decode_device_busy_share=decode["device_ms"] / wall_d,
@@ -1668,60 +1721,252 @@ def serve_profile(torch, lm, prompts, reps=3):
          prefill=prefill)
 
 
-def serve_agreement_phase(torch, dtype):
-    """hymba_1_5b at its published widths in ``dtype``, prefill through the
-    flash kernel and through the blockwise path (the reference's default),
-    on the same weights, prompts and fed tokens, compared over the
-    prefill's last logits and 8 decode steps' logits. In f32 (the SIMT
-    kernel) they must agree to 1e-3 of the largest logit; in bf16 (the
+@contextlib.contextmanager
+def swapped_cfg(lm, **changes):
+    """``lm`` with ``cfg.replace(**changes)`` for the duration: another
+    attention path or cache layout over the same parameter tensors, so two
+    runs never hold two copies of the weights."""
+    cfg = lm.cfg
+    lm.cfg = cfg.replace(**changes)
+    try:
+        yield lm
+    finally:
+        lm.cfg = cfg
+
+
+def flash_agreement(torch, lm, prompts, steps=AGREE_STEPS):
+    """Prefill ``prompts`` through the flash kernel and through the
+    blockwise path (the reference's default) on the same weights (``lm``
+    with its config swapped), fed the same tokens, compared over the
+    prefill's last logits and ``steps`` decode steps' logits. In f32 (the
+    SIMT kernel) they must agree to 1e-3 of the largest logit; in bf16 (the
     tensor-core kernel; both paths round their activations to bf16 at
     other places, layer after layer) the difference and whether the greedy
-    tokens agree are reported, and the logits must be finite."""
-    from repro_torch.configs import get_config
+    tokens agree are reported, and the logits must be finite. Every flash
+    launch must be on the dtype's route, one a layer, none in the blockwise
+    run."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      reset_counts)
     from repro_torch.launch.serve import serve_lm
-    from repro_torch.models.model import LM
-    dev = torch.device("cuda", 0)
-    base = get_config("hymba_1_5b").replace(dtype=dtype)
-    route = FLASH_ROUTE[f"torch.{dtype}"]
-    lm = LM(base.replace(attn_impl="flash"), dev).init(
-        torch.Generator(device=dev).manual_seed(0))
-    prompts = torch.randint(0, base.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=torch.Generator(device=dev).manual_seed(1),
-                            device=dev)
+    cfg = lm.cfg
+    dtype = str(lm.dtype)[6:]
+    route = FLASH_ROUTE[str(lm.dtype)]
     reset_counts()
-    res_f = serve_lm(lm, prompts, AGREE_STEPS)
+    with swapped_cfg(lm, attn_impl="flash"):
+        res_f = serve_lm(lm, prompts, steps)
     flash_launches = flash_attention.launches
     routes = dict(flash_attention.route_launches)
-    lm_b = LM(base.replace(attn_impl="blockwise"), dev)
-    lm_b.load_state_dict(lm.state_dict())
-    del lm
-    res_b = serve_lm(lm_b, prompts, AGREE_STEPS, feed=res_f.fed)
-    if flash_launches != base.n_layers or routes[route] != base.n_layers or \
+    with swapped_cfg(lm, attn_impl="blockwise"):
+        res_b = serve_lm(lm, prompts, steps, feed=res_f.fed)
+    if flash_launches != cfg.n_layers or routes[route] != cfg.n_layers or \
             flash_attention.launches != flash_launches:
         raise AssertionError(f"agreement runs launched flash_attention "
                              f"{flash_launches} ({routes}) then "
                              f"{flash_attention.launches - flash_launches} "
-                             f"times; expected {base.n_layers} on {route} "
+                             f"times; expected {cfg.n_layers} on {route} "
                              f"then 0")
     if not all(bool(torch.isfinite(lg).all())
                for lg in res_f.logits + res_b.logits):
-        raise AssertionError(f"agreement run ({dtype}): non-finite logits")
+        raise AssertionError(f"agreement run ({cfg.name}, {dtype}): "
+                             f"non-finite logits")
     largest = max(float(lg.abs().max()) for lg in res_f.logits)
     diffs = [float((a - b).abs().max())
              for a, b in zip(res_f.logits, res_b.logits)]
     if dtype == "float32" and max(diffs) > 1e-3 * largest:
-        raise AssertionError(f"flash vs blockwise logits differ by "
-                             f"{max(diffs)} > 1e-3 x {largest}")
-    emit("serve_agreement", dtype=dtype, flash_route=route,
-         gated=dtype == "float32", steps=AGREE_STEPS,
-         largest_logit=largest, max_abs_diff_per_step=diffs,
+        raise AssertionError(f"{cfg.name}: flash vs blockwise logits differ "
+                             f"by {max(diffs)} > 1e-3 x {largest}")
+    emit("serve_agreement", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=dtype, flash_route=route, gated=dtype == "float32",
+         steps=steps, largest_logit=largest, max_abs_diff_per_step=diffs,
          max_rel_diff=max(diffs) / largest,
          same_greedy_tokens=bool(torch.equal(res_f.tokens, res_b.tokens)),
          greedy_tokens_equal_share=float(
              (res_f.tokens == res_b.tokens).float().mean()),
          flash_prefill_s=res_f.prefill_s, blockwise_prefill_s=res_b.prefill_s)
+
+
+def serve_agreement_phase(torch, dtype):
+    """hymba_1_5b at its published widths in ``dtype``: flash against
+    blockwise prefill (``flash_agreement``) on seeded weights and
+    prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    dev = torch.device("cuda", 0)
+    cfg = get_config("hymba_1_5b").replace(dtype=dtype)
+    lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    flash_agreement(torch, lm, serve_prompts(torch, cfg.vocab))
+
+
+def _cache_bytes(lm, batch, window):
+    return sum(math.prod(shape) * dt.itemsize
+               for shape, dt in lm.cache_shapes(batch, window).values())
+
+
+def kv_quant_phase(torch, lm, prompts, res):
+    """The int8 KV cache on the MoE main path's weights: ``quantize_kv`` on
+    the card bit-identical to the CPU's on the same [4,2048,16,128] bf16
+    input; a prefill's cache int8 with f32 scales; then the served run
+    again with ``kv_quant=True``, fed the bf16-cache run's tokens, each
+    step's softmax within total variation 0.05 of the bf16-cache run's
+    (the reference's bound, tests/test_scale_features.py). Reports both
+    caches' bytes, the greedy-token agreement and the flash launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.layers import quantize_kv
+    dev = torch.device("cuda", 0)
+    cfg = lm.cfg
+    kvh, hd = lm.plan.kv_virtual, cfg.head_dim
+    x = (torch.randn((SERVE_BATCH, SERVE_PROMPT, kvh, hd), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(4))
+         * 3).to(torch.bfloat16)
+    q_dev, s_dev = quantize_kv(x)
+    q_cpu, s_cpu = quantize_kv(x.cpu())
+    if not (torch.equal(q_dev.cpu(), q_cpu) and torch.equal(s_dev.cpu(),
+                                                            s_cpu)):
+        raise AssertionError("quantize_kv on the card differs from the CPU")
+    del x, q_dev, s_dev, q_cpu, s_cpu
+    with swapped_cfg(lm, kv_quant=True):
+        _, cache = lm.prefill_with_cache(prompts[:1, :64])
+        kinds = {k: str(v.dtype)[6:] for k, v in cache.items()}
+        if kinds != {"k": "int8", "v": "int8", "k_scale": "float32",
+                     "v_scale": "float32", "pos": "int32"}:
+            raise AssertionError(f"kv_quant cache leaves {kinds}")
+        del cache
+        launches0 = flash_attention.launches
+        torch.cuda.reset_peak_memory_stats()
+        res_q = serve_lm(lm, prompts, SERVE_STEPS, feed=res.fed)
+        peak_q = torch.cuda.max_memory_allocated()
+        bytes_q = _cache_bytes(lm, SERVE_BATCH, SERVE_PROMPT)
+    bytes_f = _cache_bytes(lm, SERVE_BATCH, SERVE_PROMPT)
+    flash_q = flash_attention.launches - launches0
+    tvs = []
+    for lf, lq in zip(res.logits, res_q.logits):
+        pf = torch.softmax(lf[:, 0, :cfg.vocab], -1)
+        pq = torch.softmax(lq[:, 0, :cfg.vocab], -1)
+        tvs.append(float((pf - pq).abs().sum(-1).max()) / 2)
+    if not all(bool(torch.isfinite(lg).all()) for lg in res_q.logits):
+        raise AssertionError("kv_quant run: non-finite logits")
+    if max(tvs) >= 0.05:
+        raise AssertionError(f"int8 KV decode diverged: TV per step {tvs}")
+    if flash_q != cfg.n_layers:
+        raise AssertionError(f"kv_quant prefill launched flash {flash_q} "
+                             f"times, expected {cfg.n_layers}")
+    emit("kv_quant", arch=cfg.name, dtype=cfg.dtype, steps=SERVE_STEPS,
+         quantize_kv_bit_identical_to_cpu=True, cache_leaves=kinds,
+         tv_per_step=tvs, max_tv=max(tvs), tv_bound=0.05,
+         greedy_tokens_equal_share=float(
+             (res_q.tokens == res.tokens).float().mean()),
+         cache_bytes_bf16=bytes_f, cache_bytes_int8=bytes_q,
+         max_memory_allocated=peak_q, flash_launches=flash_q,
+         prefill_s=res_q.prefill_s,
+         decode_tokens_per_s=SERVE_BATCH * SERVE_STEPS / res_q.decode_s,
+         bf16_cache_decode_tokens_per_s=SERVE_BATCH * SERVE_STEPS
+         / res.decode_s)
+
+
+def _ties(probs, k):
+    """Tokens whose top k+1 router probabilities hold two equal values,
+    and those where the tie straddles the k-th place."""
+    top = probs.sort(dim=-1, descending=True).values[..., :k + 1]
+    eq = top[..., :-1] == top[..., 1:]
+    return int(eq.any(-1).sum()), int(eq[..., k - 1].sum())
+
+
+def moe_layer_parity(torch, lm):
+    """One full-width MoE layer in f32 on the card: the expert weights of
+    the served model's layer 0 (cast to f32), a router and 4 x 2048 tokens
+    on an exact grid (multiples of 2^-12 and of 1/4; every router logit is
+    then exact in f32 in any order of summation, so the card and the CPU
+    see the same logits and their routing must be identical; equal logits,
+    hence top-k ties, occur and are counted). Gates: moe_einsum and
+    moe_sort within 2e-4 of each other (the reference's own tolerance,
+    tests/test_models.py), the card's top-k indices, gates and keep mask
+    equal to the same call on the CPU, and the card's moe_einsum within
+    2e-4 of the CPU's."""
+    from repro_torch.models import layers
+    dev = torch.device("cuda", 0)
+    cfg = lm.cfg.replace(dtype="float32")
+    e, d = cfg.n_experts, cfg.d_model
+    w = lm._layer(0)["moe"]
+    p = {k: w[k].float() for k in ("w_gate", "w_up", "w_down")}
+    p["shared"] = {k: v.float() for k, v in w["shared"].items()}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p["router"] = torch.randint(-128, 128, (d, e), generator=gen,
+                                device=dev).float() / 4096
+    x = torch.randint(-8, 9, (SERVE_BATCH, SERVE_PROMPT, d), generator=gen,
+                      device=dev).float() / 4
+    t0 = time.perf_counter()
+    o_e, a_e = layers.moe_einsum(cfg, p, x)
+    torch.cuda.synchronize()
+    einsum_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o_s, a_s = layers.moe_sort(cfg, p, x)
+    torch.cuda.synchronize()
+    sort_s = time.perf_counter() - t0
+    err_es, ok_es = _close(o_s, o_e, 2e-4, 2e-4)
+    aux_ok = abs(float(a_s) - float(a_e)) <= 1e-5 * abs(float(a_e))
+    _, probs, gate, idx, cap = layers._route(cfg, p, x)
+    keep = layers._slots(idx, e, cap)[2]
+    pc = {k: (v.cpu() if not isinstance(v, dict)
+              else {kk: vv.cpu() for kk, vv in v.items()})
+          for k, v in p.items()}
+    xc = x.cpu()
+    _, probs_c, gate_c, idx_c, _ = layers._route(cfg, pc, xc)
+    keep_c = layers._slots(idx_c, e, cap)[2]
+    t0 = time.perf_counter()
+    o_c, a_c = layers.moe_einsum(cfg, pc, xc)
+    cpu_s = time.perf_counter() - t0
+    err_c, ok_c = _close(o_e.cpu(), o_c, 2e-4, 2e-4)
+    same_idx = bool(torch.equal(idx.cpu(), idx_c))
+    same_keep = bool(torch.equal(keep.cpu(), keep_c))
+    gate_err = float((gate.cpu() - gate_c).abs().max())
+    ties, ties_at_k = _ties(probs, cfg.top_k)
+    row = dict(arch=lm.cfg.name, tokens=SERVE_BATCH * SERVE_PROMPT,
+               groups=idx.shape[0], capacity=cap,
+               dropped_share=float(1 - keep.float().mean()),
+               einsum_vs_sort_max_abs_err=err_es,
+               aux_einsum=float(a_e), aux_sort=float(a_s),
+               aux_cpu=float(a_c), card_vs_cpu_max_abs_err=err_c,
+               same_topk_as_cpu=same_idx, same_keep_as_cpu=same_keep,
+               gate_max_abs_diff_vs_cpu=gate_err, topk_tie_tokens=ties,
+               topk_ties_at_kth=ties_at_k,
+               topk_tie_tokens_cpu=_ties(probs_c, cfg.top_k)[0],
+               max_abs_out=float(o_e.abs().max()), tolerance=2e-4,
+               einsum_s=einsum_s, sort_s=sort_s, cpu_einsum_s=cpu_s)
+    emit("moe_layer_parity", **row)
+    if not (ok_es and aux_ok and ok_c and same_idx and same_keep
+            and gate_err <= 1e-6 and torch.isfinite(o_e).all()):
+        raise AssertionError(f"moe layer parity failed: {row}")
+
+
+def moe_f32_agreement_phase(torch):
+    """deepseek_moe_16b at its published widths cut to 4 layers, in f32
+    (the SIMT flash kernel): flash against blockwise prefill on one set of
+    seeded weights, gated at 1e-3 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    dev = torch.device("cuda", 0)
+    cfg = get_config("deepseek_moe_16b").replace(dtype="float32", n_layers=4)
+    lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    flash_agreement(torch, lm, serve_prompts(torch, cfg.vocab))
+
+
+def sharded_chain_phase(torch):
+    """portfolio.sharded_chain_batch on [cuda:0] (the machine has one
+    card): one [B, V+1] bool block on cuda:0, equal to the CPU's draw."""
+    from repro_torch.core.sat.portfolio import sharded_chain_batch
+    dev = torch.device("cuda", 0)
+    n_vars, b = 384, 24
+    (blk,) = sharded_chain_batch(n_vars, b, seed=0, devices=[dev])
+    (cpu,) = sharded_chain_batch(n_vars, b, seed=0, devices=["cpu"])
+    ok = (tuple(blk.shape) == (b, n_vars + 1) and blk.dtype == torch.bool
+          and blk.device == dev and torch.equal(blk.cpu(), cpu))
+    emit("sharded_chain_batch", devices=[str(dev)], shape=list(blk.shape),
+         dtype=str(blk.dtype), device=str(blk.device),
+         equal_to_cpu_draw=bool(torch.equal(blk.cpu(), cpu)),
+         true_share=float(blk.float().mean()))
+    if not ok:
+        raise AssertionError("sharded_chain_batch on cuda:0: wrong block")
 
 
 def main() -> int:
@@ -1755,6 +2000,7 @@ def main() -> int:
     del windows
     torch.cuda.empty_cache()
     launches, walk = main_path(torch)
+    sharded_chain_phase(torch)
     times["clause_eval_window"]["main_path_route_launches"] = \
         walk["clause_eval_route_launches"]
     times["walk_chunk"].update(
@@ -1778,12 +2024,31 @@ def main() -> int:
     lm_times = lm_kernel_phase(torch)
     flash_edge_phase(torch)
     torch.cuda.empty_cache()
-    launches.update(serve_phase(torch))
+    lm, _, _, served = serve_phase(torch, "hymba_1_5b", smi)
+    launches.update({k: served[k] for k in ("flash_attention", "ssd_scan")})
+    del lm
     torch.cuda.empty_cache()
     serve_agreement_phase(torch, "float32")
     torch.cuda.empty_cache()
     serve_agreement_phase(torch, "bfloat16")
+    torch.cuda.empty_cache()
+    lm, prompts, res, moe_launches = serve_phase(torch, "deepseek_moe_16b",
+                                                 smi)
+    flash_agreement(torch, lm, prompts)
+    torch.cuda.empty_cache()
+    kv_quant_phase(torch, lm, prompts, res)
+    torch.cuda.empty_cache()
+    moe_layer_parity(torch, lm)
+    del lm, prompts, res
+    torch.cuda.empty_cache()
+    moe_f32_agreement_phase(torch)
     times.update(lm_times)
+    moe_row = times.pop("flash_attention_moe")
+    times["flash_attention"].update(
+        moe_path_launches=moe_launches["flash_attention"],
+        moe_shape={k: moe_row[k] for k in ("shape", "ms", "plain_ms",
+                                           "library_ms", "max_abs_err")}
+        | {"bound_ms": moe_row["bound"][0], "bound_by": moe_row["bound"][1]})
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []

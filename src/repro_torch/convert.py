@@ -134,8 +134,9 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
 
     The port keeps the JAX layout as it is: ``blocks.*`` stacked on a
     leading layer axis, ``embed`` [Vp, D], ``final_norm`` [D] and
-    ``lm_head`` [D, Vp], every matrix [in, out] (no transposes); the keys
-    are the tree's paths joined by dots (``blocks.attn.wq``). Each leaf is
+    ``lm_head`` [D, Vp], every matrix [in, out] and the routed experts
+    [E, in, out] (no transposes); the keys are the tree's paths joined by
+    dots (``blocks.attn.wq``, ``blocks.moe.shared.w_gate``). Each leaf is
     cast to the port's dtype for it (the model dtype; f32 for ``dt_bias``,
     ``A_log`` and ``D``). Raises ``ValueError`` on a missing, extra or
     misshaped leaf. The tensors are on the CPU; ``LM.load_state_dict``

@@ -28,8 +28,9 @@ solves them concurrently —
     ``accept`` callback may kill all higher-II work the moment a lower II
     returns SAT + regalloc-OK.
 
-The probSAT batch runs on one device (``repro_torch.device``); sharding
-the chains over several GPUs is later work. A walk racer that fails with a
+The probSAT batch runs on one device (``repro_torch.device``);
+``sharded_chain_batch`` draws a chain batch split over several devices, as
+the reference's launch-time portfolio does on a mesh. A walk racer that fails with a
 kernel or device error does not vanish with its thread: the error is
 recorded and re-raised when the window closes (or by the next
 ``solve_window`` call, since the racer thread is not joined).
@@ -919,3 +920,27 @@ def solve_window(cnfs: List[CNF], *, method: str = "auto", seed: int = 0,
     _raise_racer_failure()
     return results   # type: ignore[return-value]
 
+
+def sharded_chain_batch(n_vars: int, chains_per_device: int, seed: int,
+                        devices=None) -> list:
+    """Initial assignments for a portfolio over ``devices`` (a sequence of
+    ``torch.device``s or names; default: the port's one device): one
+    [B, V+1] bool block per device, B = ``chains_per_device``. The
+    reference draws [D*B, V+1] Bernoulli(0.5) bools and shards them over a
+    mesh axis; here all D*B chains come from one CPU ``torch.Generator``
+    seeded with ``seed`` and block i goes to ``devices[i]``, so the blocks
+    concatenated are the one-device draw of D*B chains whatever the
+    devices are. Raises ``DeviceUnavailable`` for a device this machine
+    does not have."""
+    import torch
+
+    from ...device import _check, resolve_device
+    devs = ([resolve_device()] if devices is None
+            else [_check(d) for d in devices])
+    if not devs or chains_per_device < 1 or n_vars < 0:
+        raise ValueError(f"sharded_chain_batch: {len(devs)} devices, "
+                         f"{chains_per_device} chains each, {n_vars} vars")
+    b = chains_per_device
+    gen = torch.Generator().manual_seed(seed)
+    init = torch.rand((len(devs) * b, n_vars + 1), generator=gen) < 0.5
+    return [init[i * b:(i + 1) * b].to(d) for i, d in enumerate(devs)]

@@ -302,8 +302,9 @@ def _init_assign(gen: torch.Generator, batch: int, n_vars_padded: int,
 
 def _maybe_shard_window(assign0: torch.Tensor) -> torch.Tensor:
     """Single-GPU pass-through. The JAX package shards the restart batch
-    over a device mesh here; the port walks on one card, and sharding the
-    chains across GPUs is later work."""
+    over a device mesh here; the port walks on one card
+    (``portfolio.sharded_chain_batch`` draws a batch split over several
+    devices, but no walk spans them)."""
     return assign0
 
 

@@ -6,7 +6,10 @@ and the batched LM decode loop.
 
 Prompts go through ``LM.prefill_with_cache`` (prefill attention on the
 flash kernel when the config says ``attn_impl="flash"``), then a greedy
-loop of ``LM.decode_step`` over the ring-buffer cache. :func:`serve_lm` is
+loop of ``LM.decode_step`` over the ring-buffer cache (int8 with scales
+when the config says ``kv_quant=True``). Every configuration of
+``repro_torch.configs`` serves, the MoE ones (``--arch deepseek_moe_16b``,
+``llama4_maverick_400b_a17b``) included. :func:`serve_lm` is
 the driver that ``main`` and ``chip_smoke.py`` both call. Unlike the
 reference, whose ``--smoke`` flag cannot be turned off, ``main`` serves
 the published widths unless ``--smoke`` is given.

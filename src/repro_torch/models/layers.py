@@ -1,15 +1,24 @@
-"""Model layers in torch: norm, RoPE, attention, SwiGLU, SSD (copies of
-the JAX package's ``models/layers.py`` for the dense, SSM and hybrid
-families, forward only).
+"""Model layers in torch: norm, RoPE, int8 KV quantisation, attention,
+SwiGLU, MoE, SSD (copies of the JAX package's ``models/layers.py``,
+forward only).
 
 Every function takes plain tensors and dicts of parameter tensors, keeps
-the reference's layouts ([B,S,H,D] activations, [in, out] weights) and
-computes in f32 exactly where the reference upcasts. Attention is
-*blockwise* (online softmax over KV blocks) by default; ``impl="flash"``
-sends prefill attention to the hand-written CUDA kernel
-(``repro_torch.kernels.flash_attention``; its plain version on the CPU).
-The MoE layers and int8 KV quantisation are not ported: the ``LM``
-refuses configurations that need them.
+the reference's layouts ([B,S,H,D] activations, [in, out] weights,
+[E, in, out] expert weights) and computes in f32 exactly where the
+reference upcasts. Attention is *blockwise* (online softmax over KV
+blocks) by default; ``impl="flash"`` sends prefill attention to the
+hand-written CUDA kernel (``repro_torch.kernels.flash_attention``; its
+plain version on the CPU).
+
+The MoE layers keep the reference's dispatch groups, capacity, drop
+order and aux loss. Where torch and JAX differ they follow JAX: top-k
+is a stable descending sort, so ties go to the lower expert index as in
+``jax.lax.top_k``; the token order within an expert comes from a stable
+argsort; a dropped token is written to a spare row (or a spare capacity
+slot) that is sliced off, where JAX drops an out-of-range update; and
+the router's bf16 weights are cast to f32 before the product, which JAX
+promotes implicitly. The expert products are plain ``torch`` matmuls
+(the reference computes them outside any Pallas kernel too).
 """
 from __future__ import annotations
 
@@ -49,6 +58,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------- KV quantization
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(pos, head) quantization over the head_dim axis.
+    x: [..., hd] -> (int8 [..., hd], scale f32 [...]). Bit-identical to the
+    reference on the same input (f32 division, round half to even)."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-8)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which rounds otherwise than amax / 127
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 # ------------------------------------------------------------- attention
@@ -167,6 +195,154 @@ def swiglu(p: Params, x: torch.Tensor, bias: bool = False) -> torch.Tensor:
     if bias:
         out = out + p["b_down"]
     return out
+
+
+def _moe_groups(cfg: ModelConfig, t: int) -> int:
+    """Number of dispatch groups: capacity is enforced per group so the
+    dispatch structures stay O(group) — groups align with data shards."""
+    g = max(1, t // cfg.moe_group)
+    while t % g:
+        g -= 1
+    return g
+
+
+def _route(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The router of both dispatches: x [B,S,D] in groups of ``sg`` tokens.
+    Returns (xg [g,sg,d], probs [g,sg,e] f32, gate [g,sg,k] f32 (top-k
+    probabilities renormalised), idx [g,sg,k] int64, cap)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    ng = _moe_groups(cfg, t)
+    sg = t // ng
+    cap = max(1, int(cfg.capacity_factor * sg * k / e))
+    xg = x.reshape(ng, sg, d)
+    logits = xg.float() @ p["router"].float()                # [g,sg,e]
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k: descending, the lower index first on ties
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :k], idx[..., :k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return xg, probs, gate, idx, cap
+
+
+def _slots(idx: torch.Tensor, e: int, cap: int):
+    """The einsum dispatch's slots: (one-hot of idx [g,sg,k,e] f32, each
+    (token, k) slot's position in its expert's buffer [g,sg,k] int64,
+    counted in (token, k) order, and whether it fits, pos < cap)."""
+    ng, sg, k = idx.shape
+    onehot = F.one_hot(idx, e).float()
+    # the running count per expert, scanned along the last axis
+    pos = torch.cumsum(onehot.reshape(ng, sg * k, e).transpose(1, 2),
+                       dim=-1) - 1.0                         # [g,e,sg*k]
+    pos = torch.gather(pos, 1, idx.reshape(ng, 1, sg * k)).reshape(ng, sg, k)
+    return onehot, pos.long(), pos < cap
+
+
+def _aux(cfg: ModelConfig, probs: torch.Tensor,
+         onehot: torch.Tensor) -> torch.Tensor:
+    """Load-balancing loss e * sum(mean prob * mean assignment count)."""
+    e, k = cfg.n_experts, cfg.top_k
+    me = probs.reshape(-1, e).mean(dim=0)
+    ce = onehot.reshape(-1, k, e).sum(1).mean(0)
+    return e * torch.sum(me * ce)
+
+
+def _experts(p: Params, xin: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its capacity buffer: xin [g,e,c,d] ->
+    [g,e,c,d], one batched product per weight, experts on the batch axis."""
+    g, e, c, d = xin.shape
+    xe = xin.transpose(0, 1).reshape(e, g * c, d)
+    gg = torch.bmm(xe, p["w_gate"])
+    uu = torch.bmm(xe, p["w_up"])
+    hh = F.silu(gg.float()).to(xin.dtype) * uu
+    eout = torch.bmm(hh, p["w_down"])                        # [e,g*c,d]
+    return eout.reshape(e, g, c, d).transpose(0, 1)
+
+
+def moe_sort(cfg: ModelConfig, p: Params, x: torch.Tensor,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort/scatter MoE dispatch: tokens argsorted (stably) by expert
+    within a group, placed into per-expert capacity buffers by a scatter
+    (overflow goes to a spare row that is sliced off, where the reference
+    drops the write), and combined back with a scatter-add in f32.
+    Returns (out [B,S,D], aux loss f32)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xg, probs, gate, idx, cap = _route(cfg, p, x)
+    ng, sg = xg.shape[:2]
+    flat_e = idx.reshape(ng, sg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)                # [g, sg*k]
+    # position within expert = rank - first occurrence of that expert
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.arange(sg * k, device=x.device)[None, :] - first
+    keep = pos < cap
+    dest = torch.where(keep, sorted_e * cap + pos, e * cap)  # spare row
+    token = order // k                                       # [g, sg*k]
+    src = torch.gather(xg, 1, token[..., None].expand(-1, -1, d))
+    xin = torch.zeros((ng, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xin.scatter_(1, dest[..., None].expand(-1, -1, d), src)
+    eout = _experts(p, xin[:, :e * cap].reshape(ng, e, cap, d))
+    eout = eout.reshape(ng, e * cap, d)
+
+    back = torch.gather(eout, 1, torch.where(keep, dest, 0)[..., None]
+                        .expand(-1, -1, d))                  # [g, sg*k, d]
+    gflat = torch.gather(gate.reshape(ng, sg * k), 1, order)
+    w = torch.where(keep, gflat, 0.0).float()
+    contrib = back.float() * w[..., None]
+    out = torch.zeros((ng, sg, d), dtype=torch.float32, device=x.device)
+    out.scatter_add_(1, token[..., None].expand(-1, -1, d), contrib)
+    out = out.to(x.dtype).reshape(b, s, d)
+
+    aux = _aux(cfg, probs, F.one_hot(idx, e).float())
+    if cfg.n_shared_experts:
+        out = out + swiglu(p["shared"], x)
+    return out, aux
+
+
+def moe_einsum(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style dispatch with per-group capacity: one-hot dispatch and
+    combine tensors [g,sg,e,cap] and products with them.
+
+    The reference forms them as einsums over a [g,sg,k,e,cap] one-hot of
+    each slot's position. Every element of those einsums has at most one
+    non-zero term (a token picks an expert once), so they are built here
+    by a scatter of 1 and of the gate into [g,sg,e*cap + 1], a dropped
+    slot going to the spare last column, which gives the same values
+    without the five-axis tensor. The combine weights are rounded to the
+    model dtype before the product, as in the reference.
+    Returns (out [B,S,D], aux loss f32)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xg, probs, gate, idx, cap = _route(cfg, p, x)
+    ng, sg = xg.shape[:2]
+    onehot, pos, keep = _slots(idx, e, cap)
+    col = torch.where(keep, idx * cap + pos, e * cap)        # [g,sg,k]
+    dispatch = torch.zeros((ng, sg, e * cap + 1), dtype=torch.float32,
+                           device=x.device)
+    combine = torch.zeros_like(dispatch)
+    dispatch.scatter_(2, col, 1.0)
+    combine.scatter_(2, col, gate)
+    dispatch = dispatch[..., :e * cap].to(x.dtype)           # [g,sg,e*cap]
+    combine = combine[..., :e * cap].to(x.dtype)
+    xin = dispatch.transpose(1, 2) @ xg                      # [g,e*cap,d]
+    eout = _experts(p, xin.reshape(ng, e, cap, d))
+    out = combine @ eout.reshape(ng, e * cap, d)             # [g,sg,d]
+    out = out.reshape(b, s, d)
+    aux = _aux(cfg, probs, onehot)
+    if cfg.n_shared_experts:
+        out = out + swiglu(p["shared"], x)
+    return out, aux
+
+
+def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixture-of-experts block; impl selected by cfg.moe_impl."""
+    if cfg.moe_impl == "sort":
+        return moe_sort(cfg, p, x)
+    return moe_einsum(cfg, p, x)
 
 
 # ------------------------------------------------------------------- SSD

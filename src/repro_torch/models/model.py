@@ -1,19 +1,25 @@
 """The LM in torch: parameters, forward, logits, prefill and decode (a copy
-of the JAX package's ``models/model.py`` for the dense, SSM and hybrid
+of the JAX package's ``models/model.py`` for the dense, MoE, SSM and hybrid
 families, including ``audio``/``vlm`` fed tokens or embeddings, which take
-the dense block).
+the dense block, and the int8 KV cache of ``kv_quant=True``).
 
 The parameters keep the reference's tree: ``blocks.*`` stacked on a
 leading layer axis, plus ``embed``, ``final_norm`` and ``lm_head``, each
-in the reference's [in, out] layout; ``state_dict()`` keys are the tree's
-paths joined by dots (``blocks.attn.wq``), which is what
-``repro_torch.convert.lm_params_from_numpy`` produces. The port runs on one
-GPU, so the head plan is read at tp=1 and there are no sharding
-constraints. The layers run in a Python loop over the stacked layer axis
-(the reference scans), and ``decode_step`` updates the ring-buffer cache
-in place (the reference returns a new one). Not ported: the ``moe``
-family and ``kv_quant`` (both raise ``NotImplementedError``), and the
-training step.
+in the reference's [in, out] layout (routed experts [E, in, out]);
+``state_dict()`` keys are the tree's paths joined by dots
+(``blocks.attn.wq``, ``blocks.moe.shared.w_up``), which is what
+``repro_torch.convert.lm_params_from_numpy`` produces. The port runs on
+one GPU, so the head plan is read at tp=1, there are no sharding
+constraints, and ``fsdp_experts`` (the reference's FSDP sharding of
+expert weights over the data axes) has nothing to shard: every expert
+lives on the one card. The layers run in a Python loop over the stacked
+layer axis (the reference scans), and ``decode_step`` updates the
+ring-buffer cache in place (the reference returns a new one). With
+``kv_quant`` the cache holds int8 ``k``/``v`` with f32 per-(position,
+head) scales: a decode step dequantizes each layer's ring to the model
+dtype before attention and quantizes the new slot, and
+``prefill_with_cache`` quantizes each layer's slots as it writes them.
+Not ported: the training step.
 """
 from __future__ import annotations
 
@@ -37,14 +43,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "moe" or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family (moe_sort/moe_einsum/moe_layer) is "
-            f"not ported yet")
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache "
-                                  f"(kv_quant=True) is not ported yet")
-    if cfg.family not in ("dense", "ssm", "hybrid", "audio", "vlm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
         raise ValueError(cfg.family)
 
 
@@ -75,7 +74,19 @@ def _block_shapes(cfg: ModelConfig, plan: Optional[AttnPlan]
             "ssm.w_out": (di, d)})
     if cfg.family == "hybrid":
         out["mix"] = (2,)
-    if cfg.d_ff:
+    if cfg.n_experts:
+        e, f = cfg.n_experts, cfg.d_ff
+        out["ln2"] = (d,)
+        out["moe.router"] = (d, e)
+        out["moe.w_gate"] = (e, d, f)
+        out["moe.w_up"] = (e, d, f)
+        out["moe.w_down"] = (e, f, d)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * f
+            out["moe.shared.w_gate"] = (d, fs)
+            out["moe.shared.w_up"] = (d, fs)
+            out["moe.shared.w_down"] = (fs, d)
+    elif cfg.d_ff:
         out["ln2"] = (d,)
         out["mlp.w_gate"] = (d, cfg.d_ff)
         out["mlp.w_up"] = (d, cfg.d_ff)
@@ -149,14 +160,17 @@ class LM(nn.Module):
         ``mix`` one, biases and ``dt_bias`` zero, ``A_log`` zero, ``D`` one,
         matrices N(0, 0.02) with the output projections scaled by
         1/sqrt(2 n_layers), top-level leaves N(0, 0.02)), from
-        ``generator``, which must live on the LM's device. The numbers differ
-        from JAX's: carry a JAX tree across with ``lm_params_from_numpy``."""
-        for name, (shape, dt) in param_shapes(self.cfg).items():
+        ``generator``, which must live on the LM's device. Each leaf is drawn
+        in place (``normal_``, computed in f32 and rounded to the leaf's
+        dtype), so no temporary the size of a leaf exists: at
+        deepseek_moe_16b's widths one expert leaf is 10 GB in bf16. The
+        numbers differ from JAX's: carry a JAX tree across with
+        ``lm_params_from_numpy``."""
+        for name in param_shapes(self.cfg):
             base = name.split(".")[-1]
             leaf = self._leaf(name)
             if not name.startswith("blocks."):
-                leaf.copy_(torch.randn(shape, generator=generator,
-                                       device=self.device) * 0.02)
+                leaf.normal_(0.0, 0.02, generator=generator)
             elif base in ("ln1", "ln2", "norm", "mix", "D"):
                 leaf.fill_(1)
             elif base in ("dt_bias", "A_log") or base.startswith("b"):
@@ -165,8 +179,7 @@ class LM(nn.Module):
                 scale = 0.02
                 if base in ("wo", "w_down", "w_out"):
                     scale = 0.02 / math.sqrt(2 * self.cfg.n_layers)
-                leaf.copy_(torch.randn(shape, generator=generator,
-                                       device=self.device) * scale)
+                leaf.normal_(0.0, scale, generator=generator)
         if not self.cfg.is_attention_free:
             self._mask_dead_heads()
         return self
@@ -205,13 +218,16 @@ class LM(nn.Module):
     # ------------------------------------------------------------ forward
     def _block(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
                cache: Optional[Params], window: int,
-               want_cache: bool = False) -> Tuple[torch.Tensor, Params]:
-        """Returns (x, new_cache); without MoE there is no aux loss."""
+               want_cache: bool = False,
+               ) -> Tuple[torch.Tensor, Params, Any]:
+        """Returns (x, new_cache, aux_loss); the aux loss is an f32 tensor
+        under MoE and 0.0 otherwise (no launch on a decode step)."""
         cfg = self.cfg
+        aux: Any = 0.0
         h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
         new_cache: Dict[str, Any] = {}
         impl = cfg.attn_impl if cache is None else "blockwise"
-        if cfg.family in ("dense", "audio", "vlm"):
+        if cfg.family in ("dense", "moe", "audio", "vlm"):
             a, kv = layers.attention_layer(
                 cfg, self.plan, p["attn"], h, positions,
                 cache=cache.get("attn") if cache else None, window=window,
@@ -241,10 +257,14 @@ class LM(nn.Module):
             new_cache["ssm"] = sc
         else:
             raise ValueError(cfg.family)
-        if cfg.d_ff:
+        if cfg.n_experts:
+            h2 = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            mo, aux = layers.moe_layer(cfg, p["moe"], h2)
+            x = x + mo
+        elif cfg.d_ff:
             h2 = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
             x = x + layers.swiglu(p["mlp"], h2, bias=cfg.mlp_bias)
-        return x, new_cache
+        return x, new_cache, aux
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens]
@@ -271,14 +291,16 @@ class LM(nn.Module):
                 embeds: Optional[torch.Tensor] = None, window: int = 0,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (hidden [B,S,D], aux_loss), the
-        aux loss zero as the reference's is without MoE."""
+        aux loss summed over the layers (zero without MoE)."""
         x = self._inputs(tokens, embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.cfg.n_layers):
-            x, _ = self._block(self._layer(i), x, positions, cache=None,
-                               window=window)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, _, a = self._block(self._layer(i), x, positions, cache=None,
+                                  window=window)
+            aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------- decode
     def cache_shapes(self, batch: int, window: int
@@ -290,8 +312,12 @@ class LM(nn.Module):
         out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
         if not cfg.is_attention_free:
             kvh, hd = self.plan.kv_virtual, cfg.head_dim
-            out["k"] = ((L, batch, window, kvh, hd), dt)
-            out["v"] = ((L, batch, window, kvh, hd), dt)
+            kv_dt = torch.int8 if cfg.kv_quant else dt
+            out["k"] = ((L, batch, window, kvh, hd), kv_dt)
+            out["v"] = ((L, batch, window, kvh, hd), kv_dt)
+            if cfg.kv_quant:
+                out["k_scale"] = ((L, batch, window, kvh), torch.float32)
+                out["v_scale"] = ((L, batch, window, kvh), torch.float32)
             out["pos"] = ((L, batch, window), torch.int32)
         if cfg.has_ssm:
             h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -312,6 +338,19 @@ class LM(nn.Module):
                 out[k] = torch.zeros(shape, dtype=dt, device=self.device)
         return out
 
+    def _write_kv(self, cache: Params, i: int, slots, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+        """Write layer ``i``'s k/v [B, n, KV, hd] into ring ``slots`` (an
+        int or n slot indices), quantized to int8 with their scales under
+        ``kv_quant``."""
+        if self.cfg.kv_quant:
+            k, ks = layers.quantize_kv(k)
+            v, vs = layers.quantize_kv(v)
+            cache["k_scale"][i][:, slots] = ks
+            cache["v_scale"][i][:, slots] = vs
+        cache["k"][i][:, slots] = k
+        cache["v"][i][:, slots] = v
+
     @torch.no_grad()
     def decode_step(self, cache: Params, tokens: torch.Tensor, t: int,
                     ) -> Tuple[torch.Tensor, Params]:
@@ -329,19 +368,23 @@ class LM(nn.Module):
         for i in range(cfg.n_layers):
             layer_cache: Dict[str, Any] = {}
             if not cfg.is_attention_free:
-                layer_cache["attn"] = {"k": cache["k"][i], "v": cache["v"][i],
-                                       "pos": cache["pos"][i]}
+                k, v = cache["k"][i], cache["v"][i]
+                if cfg.kv_quant:
+                    k = layers.dequantize_kv(k, cache["k_scale"][i],
+                                             self.dtype)
+                    v = layers.dequantize_kv(v, cache["v_scale"][i],
+                                             self.dtype)
+                layer_cache["attn"] = {"k": k, "v": v, "pos": cache["pos"][i]}
             if cfg.has_ssm:
                 layer_cache["ssm"] = {
                     "state": cache["state"][i], "conv_x": cache["conv_x"][i],
                     "conv_B": cache["conv_B"][i],
                     "conv_C": cache["conv_C"][i]}
-            x, nc = self._block(self._layer(i), x, positions, layer_cache,
-                                window=aw)
+            x, nc, _ = self._block(self._layer(i), x, positions,
+                                   layer_cache, window=aw)
             if not cfg.is_attention_free:
-                kv = nc["attn_kv"]
-                cache["k"][i, :, slot] = kv["k"][:, 0]
-                cache["v"][i, :, slot] = kv["v"][:, 0]
+                self._write_kv(cache, i, slot, nc["attn_kv"]["k"][:, 0],
+                               nc["attn_kv"]["v"][:, 0])
                 cache["pos"][i, :, slot] = t
             if cfg.has_ssm:
                 for key in ("state", "conv_x", "conv_B", "conv_C"):
@@ -376,11 +419,12 @@ class LM(nn.Module):
         src = torch.arange(s - take, s, device=x.device)
         slots = src % window
         for i in range(cfg.n_layers):
-            x, nc = self._block(self._layer(i), x, positions, cache=None,
-                                window=cfg.attn_window, want_cache=True)
+            x, nc, _ = self._block(self._layer(i), x, positions, cache=None,
+                                   window=cfg.attn_window, want_cache=True)
             if not cfg.is_attention_free:
-                cache["k"][i][:, slots] = nc["attn_kv"]["k"][:, s - take:s]
-                cache["v"][i][:, slots] = nc["attn_kv"]["v"][:, s - take:s]
+                self._write_kv(cache, i, slots,
+                               nc["attn_kv"]["k"][:, s - take:s],
+                               nc["attn_kv"]["v"][:, s - take:s])
                 cache["pos"][i][:, slots] = src.to(torch.int32)
             if cfg.has_ssm:
                 for key in ("state", "conv_x", "conv_B", "conv_C"):

@@ -105,13 +105,11 @@ def test_head_plan_equals_the_reference(tp):
 
 
 def test_param_shapes_and_dead_head_mask_equal_the_reference():
-    """Every supported config (published widths, no allocation): the
-    port's parameter names and shapes are the reference tree's, and the
-    dead-head mask at tp=1 is the reference's."""
+    """Every config (published widths, no allocation), the MoE family
+    included: the port's parameter names and shapes are the reference
+    tree's, and the dead-head mask at tp=1 is the reference's."""
     mesh = _mesh()
     for arch, cfg in all_configs().items():
-        if cfg.family == "moe":
-            continue
         ref = RefLM(ref_get_config(arch), mesh)
         want = {}
         for path, leaf in jax.tree_util.tree_leaves_with_path(
@@ -287,15 +285,36 @@ def test_ssm_layer_prefill_then_decode_matches():
 
 
 # ------------------------------------------------------ the whole slice
-@pytest.mark.parametrize("arch,impl", [("hymba_1_5b", "flash"),
-                                       ("minitron_8b", "flash"),
-                                       ("mamba2_370m", "blockwise"),
-                                       ("musicgen_large", "flash")])
-def test_prefill_then_decode_matches_reference(arch, impl):
+# (arch, impl, config changes): the MoE cases also run at small groups and
+# half capacity, so that tokens are dropped and there are several groups
+_MOE_SMALL = dict(moe_group=8, capacity_factor=0.5)
+_SERVE_CASES = [
+    ("hymba_1_5b", "flash", {}), ("minitron_8b", "flash", {}),
+    ("mamba2_370m", "blockwise", {}), ("musicgen_large", "flash", {}),
+    ("deepseek_moe_16b", "flash", {}), ("deepseek_moe_16b", "blockwise", {}),
+    ("deepseek_moe_16b", "flash", dict(_MOE_SMALL, tag="dropping")),
+    ("deepseek_moe_16b", "blockwise", dict(_MOE_SMALL, tag="dropping")),
+    ("llama4_maverick_400b_a17b", "flash", {}),
+    ("llama4_maverick_400b_a17b", "blockwise", {}),
+    ("qwen1_5_32b", "flash", dict(kv_quant=True, tag="kv_quant")),
+    ("qwen1_5_32b", "blockwise", dict(kv_quant=True, tag="kv_quant")),
+    ("deepseek_moe_16b", "flash",
+     dict(_MOE_SMALL, kv_quant=True, tag="dropping-kv_quant")),
+]
+
+
+@pytest.mark.parametrize("arch,impl,kw", [
+    pytest.param(a, i, kw, id="-".join([a, i] + ([kw["tag"]] if kw else [])))
+    for a, i, kw in _SERVE_CASES])
+def test_prefill_then_decode_matches_reference(arch, impl, kw):
     """prefill_with_cache of 20 tokens (past hymba's smoke window of 16, so
     the ring buffer wraps and the window masks) then 4 decode_steps: the
-    logits and every cache leaf agree with the reference."""
-    mesh, ref, params, lm = _pair(arch, attn_impl=impl)
+    logits and every cache leaf agree with the reference (an int8 cache
+    within one quantisation step: a value on a .5 boundary after products
+    summed in another order may round the other way), and so do
+    forward's hidden state and aux loss (summed over the MoE layers)."""
+    kw = {k: v for k, v in kw.items() if k != "tag"}
+    mesh, ref, params, lm = _pair(arch, attn_impl=impl, **kw)
     S, EXTRA = 20, 4
     toks = np.random.RandomState(5).randint(0, ref.cfg.vocab, (2, S + EXTRA))
     with mesh:
@@ -307,6 +326,7 @@ def test_prefill_then_decode_matches_reference(arch, impl):
                 params, want_cache, jnp.asarray(toks[:, t:t + 1], jnp.int32),
                 jnp.int32(t))
             wants.append((want_lg, want_cache))
+        want_x, want_aux = ref.forward(params, jnp.asarray(toks, jnp.int32))
     tt = torch.from_numpy(toks)
     got_lg, cache = lm.prefill_with_cache(tt[:, :S])
     gots = [(got_lg, {k: v.clone() for k, v in cache.items()})]
@@ -318,11 +338,19 @@ def test_prefill_then_decode_matches_reference(arch, impl):
         _close(g_lg, w_lg)
         assert set(g_cache) == set(w_cache)
         for key in w_cache:
+            want = np.asarray(w_cache[key])
             if key == "pos":
-                np.testing.assert_array_equal(g_cache[key].numpy(),
-                                              np.asarray(w_cache[key]))
+                np.testing.assert_array_equal(g_cache[key].numpy(), want)
+            elif want.dtype == np.int8:
+                assert g_cache[key].dtype == torch.int8
+                step = g_cache[key].numpy().astype(np.int32) - want
+                assert np.abs(step).max() <= 1, key
             else:
-                _close(g_cache[key], w_cache[key])
+                _close(g_cache[key], want)
+    got_x, got_aux = lm.forward(tt)
+    _close(got_x, want_x)
+    assert (float(want_aux) > 0) == bool(lm.cfg.n_experts)
+    _close(got_aux, want_aux)
 
 
 def test_forward_and_prefill_with_embeds_match_reference():
@@ -362,7 +390,7 @@ def test_prefill_then_decode_equals_decode_from_scratch():
             torch.testing.assert_close(lg, lgb, atol=2e-5, rtol=2e-4)
 
 
-# ----------------------------------------------------- weights and refusals
+# ------------------------------------------------------------ weights
 def test_lm_init_follows_the_reference_rules():
     cfg = get_config("hymba_1_5b").smoke()
     lm = LM(cfg).init(torch.Generator().manual_seed(0))
@@ -400,13 +428,6 @@ def test_lm_params_from_numpy_checks_leaves():
     for t in (missing, extra, bad):
         with pytest.raises(ValueError):
             lm_params_from_numpy(t, cfg)
-
-
-def test_moe_and_kv_quant_raise_not_implemented():
-    with pytest.raises(NotImplementedError):
-        LM(get_config("deepseek_moe_16b").smoke())
-    with pytest.raises(NotImplementedError):
-        LM(get_config("qwen1_5_32b").smoke().replace(kv_quant=True))
 
 
 # ----------------------------------------------------------- the driver
