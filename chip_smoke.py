@@ -61,6 +61,21 @@ the largest logit. ``flash_attention`` is also timed at deepseek's
 attention shape (MHA, D = 128), and ``sharded_chain_batch`` is drawn on
 cuda:0 and held to the CPU's draw.
 
+Training (``train_phase``, last): ``repro_torch.launch.train.train_loop``
+trains hymba_1_5b at its published widths (1,639,845,632 parameters, bf16,
+remat, blockwise attention, seeded weights) for 6 steps of the synthetic
+stream at 4 x 4096 tokens (train_4k's sequence; the global batch cut from
+256 to 4). Gates: every loss finite, the AdamW step 6, every leaf updated,
+no kernel of the port launched (the path runs none; each kernel row of the
+``kernels`` line carries ``train_path_launches``), the whole state on the
+card. It prints the steps' wall times, tokens/s, peak memory, model FLOPs
+against the bf16 peak and one more step under torch.profiler. Then one
+step's loss and gradients on the card against the CPU (2 layers, f32:
+loss within 1e-5 relative, each leaf within 1e-3 of its largest
+magnitude), crash and resume on the card (2 layers, a checkpoint every 2
+steps, a crash at step 4: params and AdamW state bit-identical to an
+uninterrupted run), and ``attn_impl="flash"`` refusing autograd.
+
 Every phase prints one JSON line; the line before the last is the
 ``kernels`` JSON, the last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without that line, as does a machine without
@@ -68,6 +83,7 @@ CUDA or a directory without the port's sources.
 """
 import asyncio
 import contextlib
+import io
 import json
 import math
 import os
@@ -105,6 +121,17 @@ ATTN_SHAPE_D128 = dict(B=4, Hq=32, Hkv=8, S=2048, D=128)
 ATTN_SHAPE_MOE = dict(B=4, Hq=16, Hkv=16, S=2048, D=128)
 SSD_SHAPE = dict(b=4, s=2048, h=32, p=100, n=16)
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, AGREE_STEPS = 4, 2048, 32, 8
+# the training phase: hymba_1_5b at its published widths, train_4k's
+# sequence (src/repro/models/config.py) at a global batch cut from 256 to 4
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "hymba_1_5b", 6, 4, 4096
+TRAIN_PARAMS = 1_639_845_632
+# card vs CPU gradients (f32, 2 layers, 2 x 256 tokens) and crash/resume
+# (the config's bf16, 2 layers, 4 x 512 tokens, 6 steps, a checkpoint
+# every 2, a crash at step 4)
+GRAD_LAYERS, GRAD_BATCH, GRAD_TOKENS = 2, 2, 256
+GRAD_LOSS_RTOL, GRAD_LEAF_TOL = 1e-5, 1e-3
+RESUME = dict(steps=6, global_batch=4, seq_len=512, ckpt_every=2)
+RESUME_LAYERS, RESUME_FAIL_AT = 2, 4
 FLASH_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
 # the kernel that flash_attention runs for each dtype
 FLASH_ROUTE = {"torch.float32": "simt", "torch.bfloat16": "tensor_core"}
@@ -125,7 +152,7 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "step_device_busy_share", "earlier", "no_clen_ms",
                  "bound_no_clen", "phase_ms", "service_path_launches",
                  "campaign_path_launches", "moe_path_launches",
-                 "moe_shape")
+                 "moe_shape", "train_path_launches")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 
 
@@ -1887,7 +1914,7 @@ def moe_layer_parity(torch, lm):
     dev = torch.device("cuda", 0)
     cfg = lm.cfg.replace(dtype="float32")
     e, d = cfg.n_experts, cfg.d_model
-    w = lm._layer(0)["moe"]
+    w = lm._layers()[0]["moe"]
     p = {k: w[k].float() for k in ("w_gate", "w_up", "w_down")}
     p["shared"] = {k: v.float() for k, v in w["shared"].items()}
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1969,6 +1996,318 @@ def sharded_chain_phase(torch):
         raise AssertionError("sharded_chain_batch on cuda:0: wrong block")
 
 
+class _LineClock(io.TextIOBase):
+    """A stdout for ``train_loop`` that keeps each line it prints with the
+    host time it was printed at. The loop prints a step's line after it
+    reads the step's loss back, which waits for the whole step on the
+    device, so the gaps between lines are the steps' wall times."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        self._buf = ""
+
+    def writable(self):
+        return True
+
+    def write(self, text):
+        now = time.perf_counter()
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((now, line))
+        return len(text)
+
+
+def train_model_flops(cfg, batch, tokens):
+    """Model FLOPs of one training step, reckoned from the config: 6·N per
+    token (forward and backward of every parameter), 2·N more for the
+    remat forward, and attention at 4·D flops per visible (query, key)
+    pair per head, four times (forward, remat forward, backward twice)."""
+    from repro_torch.models.model import param_shapes
+    n = sum(math.prod(shape) for shape, _ in param_shapes(cfg).values())
+    w = cfg.attn_window or tokens
+    pairs = sum(min(i + 1, w) for i in range(tokens))
+    attn = 4 * 4 * cfg.head_dim * pairs * cfg.n_heads * batch * cfg.n_layers
+    return n, {"params_6NT": 6 * n * batch * tokens,
+               "remat_forward_2NT": 2 * n * batch * tokens,
+               "attention": attn}
+
+
+def _leaves(*trees):
+    out = []
+    for tree in trees:
+        for v in tree.values():
+            out += _leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def train_main_phase(torch, smi):
+    """The main path of training: ``train_loop`` on hymba_1_5b at its
+    published widths (bf16, remat, blockwise attention, seeded weights)
+    for 6 steps of SyntheticLM(seed=0) at 4 x 4096 tokens. Gates: every
+    step's loss finite, the AdamW step 6, every leaf updated, no kernel
+    of the port launched, every tensor of the state on the card. Then one
+    more step under torch.profiler. Returns the kernels' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import reset_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig, lr_at
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat or cfg.attn_impl != "blockwise":
+        raise AssertionError(f"{cfg.name} trains with remat and blockwise "
+                             f"attention; got {cfg.remat}, {cfg.attn_impl}")
+    tokens = TRAIN_SEQ - 1                  # inputs [:, :-1], labels [:, 1:]
+    n_params, flops = train_model_flops(cfg, TRAIN_BATCH, tokens)
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, expected "
+                             f"{TRAIN_PARAMS}")
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = _LineClock()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        out = train_loop(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, seed=0, device=dev, log_every=1)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: f.launches for name, f in counters.items()}
+    losses = [float(ln.split("loss=")[1].split()[0]) for _, ln in clock.lines]
+    times = [t0] + [t for t, _ in clock.lines]
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or not math.isfinite(out["loss"]):
+        raise AssertionError(f"{cfg.name} training: losses {losses}, final "
+                             f"{out['loss']}")
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched kernels of the "
+                             f"port: {launches}")
+    params, opt = out.pop("params"), out.pop("opt_state")
+    if int(opt["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"AdamW step {int(opt['step'])}, expected "
+                             f"{TRAIN_STEPS}")
+    off = [str(t.device) for t in _leaves(params, opt)
+           if t.device != dev]
+    if off:
+        raise AssertionError(f"training state off the card: {off[:4]}")
+    # every leaf updated: its first moment is finite and not zero, and it
+    # changed, or (a bf16 leaf that starts at 1.0, as norms do) its last
+    # update lies below half a bf16 ulp of every element, as the reference
+    # would round it too
+    init = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    ocfg = AdamWConfig()
+    lr = float(lr_at(ocfg, opt["step"] - 1))
+    b1c = 1.0 - ocfg.b1 ** TRAIN_STEPS
+    b2c = 1.0 - ocfg.b2 ** TRAIN_STEPS
+    unchanged, stuck = {}, []
+    for name, p0 in init.state_dict().items():
+        p, m, v = params[name], opt["m"][name], opt["v"][name]
+        if not (bool(torch.isfinite(m).all()) and bool(m.any())
+                and bool(torch.isfinite(p).all())):
+            stuck.append(name)
+        elif torch.equal(p, p0):
+            pf = p.float()
+            upd = lr * ((m / b1c) / (torch.sqrt(v / b2c) + ocfg.eps)
+                        + ocfg.weight_decay * pf)
+            if not torch.equal((pf - upd).to(p.dtype), p):
+                stuck.append(name)
+            unchanged[name] = float(upd.abs().max())
+    if stuck:
+        raise AssertionError(f"leaves not updated: {stuck}")
+    # one more step of the same shapes, timed and under the profiler
+    init.load_state_dict(params)
+    del params
+    step = make_train_step(init)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(seed=0, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+        cfg).batch_at(TRAIN_STEPS).items()}
+    prof = _profile(torch, lambda: step(opt, batch), "gemm")
+    wall = statistics.median(step_s[1:])
+    model_flops = sum(flops.values())
+    emit("train", arch=cfg.name, nvidia_smi=smi, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         remat=cfg.remat, attn_impl=cfg.attn_impl, params=n_params,
+         steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+         tokens_per_step=TRAIN_BATCH * tokens,
+         reduced={"global_batch": "256 (train_4k) -> 4, to fit one card"},
+         losses=losses, final=out, adamw_step=int(opt["step"]),
+         loop_s=loop_s, step_s=step_s, step_s_median_2_6=wall,
+         tokens_per_s=TRAIN_BATCH * tokens / wall,
+         max_memory_allocated=peak, launches=launches,
+         unchanged_bf16_leaves_last_update=unchanged,
+         model_flops=model_flops, model_flops_parts=flops,
+         model_flops_share_of_bf16_peak=model_flops / wall
+         / BF16_TENSOR_FLOPS,
+         profiled_step={"device_busy_share": prof["device_ms"] / 1e3 / wall,
+                        **prof})
+    del init, opt, batch, step
+    return launches
+
+
+def train_grad_parity_phase(torch, smi):
+    """One training step's loss and gradients on the card against the CPU:
+    hymba_1_5b's widths cut to 2 layers, f32 (TF32 off), 2 x 256 tokens,
+    the same weights and batch on both. Gates: the loss within 1e-5
+    relative, every gradient leaf within 1e-3 of its largest magnitude.
+    Returns the f32 LM on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import LM
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=GRAD_LAYERS,
+                                         dtype="float32")
+    cpu = LM(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    gpu = LM(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = SyntheticLM(DataConfig(seed=0, global_batch=GRAD_BATCH,
+                                   seq_len=GRAD_TOKENS + 1), cfg).batch_at(0)
+    t0 = time.perf_counter()
+    loss_c, _, g_c = value_and_grad(cpu, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    loss_g, _, g_g = value_and_grad(gpu, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batch.items()})
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    errs = {}
+    for name, gc in g_c.items():
+        scale = float(gc.abs().max())
+        errs[name] = (float((g_g[name].cpu() - gc).abs().max()), scale)
+    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    bad = [k for k, (e, sc) in errs.items() if not e <= GRAD_LEAF_TOL * sc]
+    emit("train_grad_parity", arch=cfg.name, nvidia_smi=smi,
+         reduced={"n_layers": f"{get_config(TRAIN_ARCH).n_layers} -> "
+                              f"{GRAD_LAYERS}", "dtype": "float32"},
+         batch=GRAD_BATCH, tokens=GRAD_TOKENS, loss_cuda=float(loss_g),
+         loss_cpu=float(loss_c), loss_rel_err=rel, cpu_s=cpu_s,
+         worst_leaf=worst, worst_leaf_max_abs_err=errs[worst][0],
+         worst_leaf_max_abs=errs[worst][1], leaves=len(errs),
+         tol={"loss_rel": GRAD_LOSS_RTOL, "leaf": GRAD_LEAF_TOL})
+    if not rel <= GRAD_LOSS_RTOL or bad:
+        raise AssertionError(f"card vs CPU: loss rel err {rel}, leaves over "
+                             f"{GRAD_LEAF_TOL} of their largest magnitude: "
+                             f"{bad}")
+    return gpu
+
+
+def train_resume_phase(torch, smi):
+    """Crash and resume on the card: hymba_1_5b's widths cut to 2 layers
+    (bf16), 6 steps of 4 x 512 tokens, a checkpoint every 2 steps, a crash
+    injected at step 4 and a --resume, against the same 6 steps run
+    uninterrupted. Gate: params and AdamW state bit-identical and the final
+    loss equal (the reference's contract). Also times a checkpoint's save
+    and restore. Its files live under build/chip_smoke_train."""
+    import shutil
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=RESUME_LAYERS)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_train")
+    shutil.rmtree(base, ignore_errors=True)
+    kw = dict(RESUME, device=dev, log_every=0)
+    try:
+        crashed = os.path.join(base, "crashed")
+        try:
+            train_loop(cfg, ckpt_dir=crashed, fail_at=RESUME_FAIL_AT, **kw)
+            raise AssertionError("fail_at did not raise")
+        except RuntimeError as e:
+            if str(e) != f"injected failure at step {RESUME_FAIL_AT}":
+                raise
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            resumed = train_loop(cfg, ckpt_dir=crashed, resume=True, **kw)
+        shutil.rmtree(crashed)
+        straight = train_loop(cfg, ckpt_dir=os.path.join(base, "straight"),
+                              **kw)
+        differ = [k for k, t in straight["params"].items()
+                  if not torch.equal(resumed["params"][k], t)]
+        o1, o2 = resumed["opt_state"], straight["opt_state"]
+        differ += [f"{part}/{k}" for part in ("m", "v")
+                   for k, t in o2[part].items()
+                   if not torch.equal(o1[part][k], t)]
+        if not torch.equal(o1["step"], o2["step"]):
+            differ.append("step")
+        final_equal = resumed["loss"] == straight["loss"]
+        tree = {"params": straight["params"], "opt": o2}
+        d = os.path.join(base, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(d, RESUME["steps"], tree)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        back, _ = ckpt.restore(d, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        emit("train_resume", arch=cfg.name, nvidia_smi=smi,
+             reduced={"n_layers": f"{get_config(TRAIN_ARCH).n_layers} -> "
+                                  f"{RESUME_LAYERS}"},
+             dtype=cfg.dtype, **RESUME, fail_at=RESUME_FAIL_AT,
+             resumed_said=said.getvalue().strip(),
+             adamw_step=int(o2["step"]), final_loss_resumed=resumed["loss"],
+             final_loss_straight=straight["loss"], final_loss_equal=final_equal,
+             leaves_differing=differ, checkpoint_bytes=nbytes,
+             checkpoint_save_s=save_s, checkpoint_restore_s=restore_s)
+        if differ or not final_equal or int(o2["step"]) != RESUME["steps"]:
+            raise AssertionError(f"resume is not bit-identical: {differ[:8]}, "
+                                 f"final loss equal {final_equal}")
+        del back
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def train_flash_refusal_phase(torch, smi, lm):
+    """The flash repair on the card: a training step of ``lm`` with
+    attn_impl="flash" raises the named error, before any launch."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import value_and_grad
+    dev = torch.device("cuda", 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(seed=0, global_batch=1, seq_len=65), lm.cfg
+    ).batch_at(0).items()}
+    before = flash_attention.launches
+    with swapped_cfg(lm, attn_impl="flash"):
+        try:
+            value_and_grad(lm, batch)
+        except NotImplementedError as e:
+            message = str(e)
+        else:
+            raise AssertionError("flash_attention under autograd did not "
+                                 "raise")
+    if "blockwise" not in message or flash_attention.launches != before:
+        raise AssertionError(f"flash under autograd: {message!r}, "
+                             f"{flash_attention.launches - before} launches")
+    emit("train_flash_refusal", nvidia_smi=smi, raised="NotImplementedError",
+         message=message, launches=flash_attention.launches - before)
+
+
+def train_phase(torch, smi):
+    """Training on the card: the main path, card vs CPU gradients, crash
+    and resume, and flash refusing autograd. Returns the kernels' launch
+    counts on the main path (all zero)."""
+    launches = train_main_phase(torch, smi)
+    torch.cuda.empty_cache()
+    lm = train_grad_parity_phase(torch, smi)
+    train_flash_refusal_phase(torch, smi, lm)
+    del lm
+    torch.cuda.empty_cache()
+    train_resume_phase(torch, smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2042,6 +2381,8 @@ def main() -> int:
     del lm, prompts, res
     torch.cuda.empty_cache()
     moe_f32_agreement_phase(torch)
+    torch.cuda.empty_cache()
+    train_launches = train_phase(torch, smi)
     times.update(lm_times)
     moe_row = times.pop("flash_attention_moe")
     times["flash_attention"].update(
@@ -2066,6 +2407,7 @@ def main() -> int:
             ("ssd_scan", "ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:61")):
         t = times[name]
+        t["train_path_launches"] = train_launches[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
         if name.startswith("clause_eval"):

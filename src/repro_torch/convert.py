@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port, by plain data only.
 
 What crosses over for the mapper is the input DFG and the walk's packed
-clause tensors; for the LM it is the parameter tree, as numpy arrays. The
+clause tensors; for the LM it is the parameter tree and the AdamW
+state, as numpy arrays, in both directions. The
 functions here are duck-typed — they read plain attributes and arrays and
 never import ``repro`` — so the parity tests can feed the two packages
 identical inputs, and a later slice can carry a corpus of DFGs across.
@@ -157,3 +158,62 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
                              f"{tuple(shape)}")
         out[name] = t.to(dt)
     return out
+
+
+def _nested(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, val in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 (which numpy lacks) widened exactly to f32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def lm_params_to_numpy(lm) -> Dict[str, Any]:
+    """The JAX-shaped parameter tree of the port's ``LM`` (nested dicts of
+    numpy arrays, the inverse of :func:`lm_params_from_numpy`). bf16 leaves
+    come back as f32 holding the same values: numpy has no bf16 without
+    ``ml_dtypes``, which the port does not import."""
+    return _nested({k: _numpy(v) for k, v in lm.state_dict().items()})
+
+
+def opt_state_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, Any]:
+    """The port's AdamW state (``{"m", "v", "step"}``, f32 moments keyed as
+    the parameters are, int32 0-d step) from the JAX package's
+    ``adamw.init``/``update`` state with numpy leaves, on the CPU. Raises
+    ``ValueError`` on a missing, extra or misshaped leaf."""
+    want = param_shapes(cfg)
+    out: Dict[str, Any] = {"step": torch.tensor(int(np.asarray(tree["step"])),
+                                                dtype=torch.int32)}
+    for part in ("m", "v"):
+        got = _flatten(tree[part])
+        if set(got) != set(want):
+            raise ValueError(f"opt_state_from_numpy: {cfg.name}: {part} "
+                             f"leaves differ from the parameters' by "
+                             f"{sorted(set(got) ^ set(want))}")
+        out[part] = {}
+        for name, (shape, _) in want.items():
+            t = _tensor(got[name]).to(torch.float32)
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"opt_state_from_numpy: {cfg.name}: "
+                                 f"{part}/{name} has shape "
+                                 f"{tuple(t.shape)}, expected {tuple(shape)}")
+            out[part][name] = t
+    return out
+
+
+def opt_state_to_numpy(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX-shaped AdamW state (nested ``m``/``v`` trees, an int32 0-d
+    ``step``) of the port's state, as numpy arrays."""
+    return {"m": _nested({k: _numpy(v) for k, v in state["m"].items()}),
+            "v": _nested({k: _numpy(v) for k, v in state["v"].items()}),
+            "step": np.asarray(int(state["step"]), np.int32)}

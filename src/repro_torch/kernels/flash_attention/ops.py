@@ -53,7 +53,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,Hq,Sq,D]; k, v: [B,Hkv,Sk,D]; q position i is absolute
     position q_offset + i, k position j is j. Returns [B,Hq,Sq,D] in q's
     dtype. D must be one of ``HEAD_DIMS`` and q, k, v share one dtype of
-    ``DTYPES``; anything else raises ``ValueError`` on every device."""
+    ``DTYPES``; anything else raises ``ValueError`` on every device. The
+    kernel has no backward: with grad mode on and any of q, k, v requiring
+    grad it raises ``NotImplementedError`` on every device, before any
+    launch, where a CUDA launch would return an output with no
+    ``grad_fn``."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: expected 4-d q/k/v [B,H,S,D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -71,6 +75,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: tensors on different devices")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention has no backward: the reference cannot "
+            "differentiate its Pallas kernel either (jax.grad raises), and "
+            "training uses attn_impl=\"blockwise\"; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)

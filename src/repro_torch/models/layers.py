@@ -1,6 +1,7 @@
 """Model layers in torch: norm, RoPE, int8 KV quantisation, attention,
-SwiGLU, MoE, SSD (copies of the JAX package's ``models/layers.py``,
-forward only).
+SwiGLU, MoE, SSD (copies of the JAX package's ``models/layers.py``).
+Gradients come from autograd, except ``rmsnorm``'s, which is the
+reference's custom VJP as a ``torch.autograd.Function``.
 
 Every function takes plain tensors and dicts of parameter tensors, keeps
 the reference's layouts ([B,S,H,D] activations, [in, out] weights,
@@ -37,12 +38,34 @@ _NEG = -2.0 ** 30  # large-negative for masking (safe in bf16/f32)
 
 
 # ----------------------------------------------------------------- basics
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the reference's custom VJP (``_rmsnorm_fwd``/``_bwd``):
+    the backward keeps the *cotangent boundary* in the residual dtype (dx is
+    cast to x's dtype, dw to w's), whatever the f32 math inside."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        r = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, w, r)
+        return (xf * r).to(x.dtype) * w
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, r = ctx.saved_tensors
+        xf = x.float()
+        dyf = dy.float()
+        xhat = xf * r
+        g = dyf * w.float()
+        dw = torch.sum(dyf * xhat, dim=tuple(range(x.dim() - 1)))
+        dx = r * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm forward (the reference's custom VJP belongs to training)."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    r = torch.rsqrt(var + eps)
-    return (xf * r).to(x.dtype) * w
+    """RMSNorm; differentiable through the reference's custom VJP."""
+    return _RMSNorm.apply(x, w, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -387,7 +410,11 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, return_state: bool = False):
     rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]      # [b,nc,l,l,h]
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    # masked before the exp (the reference masks after it): the same values,
+    # but no exp(rel) = inf above the diagonal once a chunk's decay passes
+    # e^88, whose gradient (0 * inf) would be NaN
+    L = torch.exp(torch.where(causal[None, None, :, :, None], rel,
+                              float("-inf")))
     cb = Cc @ Bc.transpose(-1, -2)                           # [b,nc,l,m]
     # y_diag[l,h,p] = sum_m cb[l,m] L[l,m,h] dt[m,h] x[m,h,p]
     w = cb[..., None] * L * dtc[:, :, None, :, :]            # [b,nc,l,m,h]

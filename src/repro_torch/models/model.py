@@ -19,15 +19,24 @@ ring-buffer cache in place (the reference returns a new one). With
 head) scales: a decode step dequantizes each layer's ring to the model
 dtype before attention and quantizes the new slot, and
 ``prefill_with_cache`` quantizes each layer's slots as it writes them.
-Not ported: the training step.
+
+Training: ``loss_fn`` is the reference's (CE over the text positions,
+the ``labels >= 0`` mask, plus the router's aux loss). ``forward`` carries
+gradients when grad mode is on; with ``cfg.remat`` each block then runs
+under ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+block's inputs, as the reference's ``nothing_saveable`` policy does. The
+parameters are registered with ``requires_grad=False``: the training step
+(``repro_torch.launch.steps``) turns it on, and the serving methods run
+under ``torch.no_grad()`` whatever it is.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers
@@ -203,16 +212,20 @@ class LM(nn.Module):
         wom = wo.reshape(wo.shape[0], -1, hd, d) * mask[None, :, None, None]
         wo.copy_(wom.reshape(wo.shape))
 
-    def _layer(self, i: int) -> Params:
-        """Layer ``i``'s parameters as the reference's per-layer tree of
-        views: {"ln1": ..., "attn": {"wq": ...}, ...}."""
-        out: Params = {}
+    def _layers(self) -> List[Params]:
+        """Every layer's parameters as the reference's per-layer tree of
+        views: [{"ln1": ..., "attn": {"wq": ...}, ...}, ...]. Each stacked
+        leaf is unbound once, so a backward stacks each leaf's gradient
+        once (indexing ``t[i]`` per layer would add a zero tensor the size
+        of the whole leaf per layer)."""
+        out: List[Params] = [{} for _ in range(self.cfg.n_layers)]
         for name, t in self.blocks.named_parameters():
             *path, leaf = name.split(".")
-            node = out
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = t[i]
+            for tree, ti in zip(out, t.unbind(0)):
+                node = tree
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = ti
         return out
 
     # ------------------------------------------------------------ forward
@@ -286,21 +299,51 @@ class LM(nn.Module):
             parts.append(self.embed_tokens(tokens))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-    @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor],
                 embeds: Optional[torch.Tensor] = None, window: int = 0,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (hidden [B,S,D], aux_loss), the
-        aux loss summed over the layers (zero without MoE)."""
+        aux loss summed over the layers (zero without MoE). With grad mode
+        on and ``cfg.remat``, each block is recomputed in the backward."""
         x = self._inputs(tokens, embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(self.cfg.n_layers):
-            x, _, a = self._block(self._layer(i), x, positions, cache=None,
-                                  window=window)
-            aux = aux + a
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for lp in self._layers():
+            if remat:
+                x, aux = checkpoint(self._fwd_block, x, aux, lp, positions,
+                                    window, use_reentrant=False)
+            else:
+                x, aux = self._fwd_block(x, aux, lp, positions, window)
         return x, aux
+
+    def _fwd_block(self, x, aux, lp, positions, window):
+        x, _, a = self._block(lp, x, positions, cache=None, window=window)
+        return x, aux + a
+
+    # ------------------------------------------------------------ training
+    def loss_fn(self, batch: Dict[str, torch.Tensor],
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's loss: mean CE over the text positions whose label
+        is >= 0 (prepended frontend embeds carry no loss), plus
+        ``router_aux_weight`` times the aux loss per layer. ``batch`` holds
+        ``labels`` [B,T] and ``tokens`` and/or ``embeds``. Returns
+        (loss, {"ce", "aux"}), f32 scalars."""
+        cfg = self.cfg
+        x, aux = self.forward(batch.get("tokens"), batch.get("embeds"),
+                              window=cfg.attn_window)
+        labels = batch["labels"]
+        lg = self.logits(x[:, -labels.shape[1]:, :])          # f32
+        lse = torch.logsumexp(lg, dim=-1)
+        # gather raises on a label of -1 (JAX's take_along_axis does not):
+        # clamp it, and the mask zeroes its term
+        gold = torch.gather(lg, -1, labels.clamp(min=0).long()[..., None]
+                            )[..., 0]
+        mask = (labels >= 0).float()
+        ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+        loss = ce + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
+        return loss, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- decode
     def cache_shapes(self, batch: int, window: int
@@ -365,7 +408,7 @@ class LM(nn.Module):
         if not cfg.is_attention_free:
             slot = t % cache["k"].shape[2]
         aw = cfg.attn_window if cfg.attn_window else 0
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(self._layers()):
             layer_cache: Dict[str, Any] = {}
             if not cfg.is_attention_free:
                 k, v = cache["k"][i], cache["v"][i]
@@ -380,8 +423,7 @@ class LM(nn.Module):
                     "state": cache["state"][i], "conv_x": cache["conv_x"][i],
                     "conv_B": cache["conv_B"][i],
                     "conv_C": cache["conv_C"][i]}
-            x, nc, _ = self._block(self._layer(i), x, positions,
-                                   layer_cache, window=aw)
+            x, nc, _ = self._block(lp, x, positions, layer_cache, window=aw)
             if not cfg.is_attention_free:
                 self._write_kv(cache, i, slot, nc["attn_kv"]["k"][:, 0],
                                nc["attn_kv"]["v"][:, 0])
@@ -418,8 +460,8 @@ class LM(nn.Module):
         take = min(window, s)
         src = torch.arange(s - take, s, device=x.device)
         slots = src % window
-        for i in range(cfg.n_layers):
-            x, nc, _ = self._block(self._layer(i), x, positions, cache=None,
+        for i, lp in enumerate(self._layers()):
+            x, nc, _ = self._block(lp, x, positions, cache=None,
                                    window=cfg.attn_window, want_cache=True)
             if not cfg.is_attention_free:
                 self._write_kv(cache, i, slots,

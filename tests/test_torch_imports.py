@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax (nor optax) nor anything of the JAX package ``repro``, at run
-time or in their source (the serving tier, the frontend, a spawned shard,
-the campaign and a guided compile included), and the CDCL worker that the
+neither jax (nor optax, nor ml_dtypes) nor anything of the JAX package
+``repro``, at run time or in their source (the serving tier, the frontend,
+a spawned shard, the campaign, a guided compile and training included),
+and the CDCL worker that the
 solver pool forks imports no torch at all (a child forked after CUDA
 started must never touch CUDA), nor do the numpy guide, the campaign
 engine and the static analysis."""
@@ -61,6 +62,29 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 print("LOADED:" + ",".join(bad))
 """)
+    assert last == "LOADED:"
+
+
+def test_training_loads_no_jax_no_reference_and_no_ml_dtypes(tmp_path):
+    """The training CLI (data, AdamW, remat, checkpoints and a resume) runs
+    with neither jax, the reference nor ml_dtypes loaded."""
+    last = _run(r"""
+import sys
+from repro_torch.launch import steps, train
+from repro_torch.checkpoint import checkpoint
+from repro_torch.data import pipeline
+from repro_torch.optim import adamw
+args = ["--arch", "hymba_1_5b", "--smoke", "--steps", "2", "--global-batch",
+        "2", "--seq-len", "8", "--device", "cpu", "--ckpt-dir", %r,
+        "--ckpt-every", "1"]
+train.main(args)
+train.main(args[:4] + ["3"] + args[5:] + ["--resume"])
+state, manifest = checkpoint.restore(%r)
+assert manifest["step"] == 3 and int(state["opt"]["step"]) == 3
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print("LOADED:" + ",".join(bad))
+""" % (str(tmp_path), str(tmp_path)))
     assert last == "LOADED:"
 
 
@@ -172,7 +196,7 @@ def _sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "optax", "repro")
+    return top in ("jax", "jaxlib", "optax", "ml_dtypes", "repro")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
