@@ -76,6 +76,22 @@ magnitude), crash and resume on the card (2 layers, a checkpoint every 2
 steps, a crash at step 4: params and AdamW state bit-identical to an
 uninterrupted run), and ``attn_impl="flash"`` refusing autograd.
 
+The dry run (``dryrun_phase``, after training): ``run_cell`` of
+``repro_torch.launch.dryrun`` for every arch x shape on the 16x16 pod mesh
+and two cells of the 2x16x16 multi-pod mesh, on the meta device in 8
+spawned host processes (gates: every applicable cell ``ok``, the skips
+exactly ``shape_applicable``'s, the argument bytes equal to the specs').
+Then hymba_1_5b at its published widths on a 1x1 mesh: prefill of 4 x 2048
+tokens with flash, a decode step at batch 4 over a 2048-slot ring and a
+train step at 4 x 4096, each dry-run on meta and then run on the card
+(gates: the FLOPs counted on meta equal ``FlopCounterMode``'s over the
+real step on cuda, the argument bytes equal the real tensors'; printed:
+the predicted peak against ``max_memory_allocated``, the step's time
+against the roofline, model FLOPs against the bf16 peak), and the cost of
+flash's ``torch.library`` operator against a direct launch. Last,
+``examples_phase`` runs the four torch examples on cuda (gates: exit 0,
+the JAX examples' IIs, finite losses).
+
 Every phase prints one JSON line; the line before the last is the
 ``kernels`` JSON, the last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without that line, as does a machine without
@@ -91,6 +107,12 @@ import statistics
 import subprocess
 import sys
 import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the card's published rates, one source for the port and this script;
+# the import fails in a directory without the port
+from repro_torch.launch import roofline  # noqa: E402
 
 # the reference mapper's IIs at 4x4, sweep width 4, default solver; patricia
 # is unmappable there (every II up to MII+16 is refuted). A CPU test
@@ -108,10 +130,10 @@ SERVICE_DEADLINE_S = 120.0
 # reference's CI-sized run, at least 200 cells)
 CAMPAIGN_QUICK = dict(seed=0, workers=2, n_random=64, n_mutants=40,
                       fabrics="2x2,3x3,4x4", eval_cells=40, sweep_width=4)
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+HBM_BYTES_PER_S = roofline.HBM_BW        # H100 SXM device memory
 INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit rate
 F32_FLOPS = 67e12                # H100 SXM non-tensor f32 rate
-BF16_TENSOR_FLOPS = 989.4e12     # H100 SXM dense bf16 tensor-core rate
+BF16_TENSOR_FLOPS = roofline.PEAK_FLOPS  # H100 SXM dense bf16 tensor cores
 REPS = 50
 # the LM slice: hymba_1_5b's attention and SSM shapes, and its serving run
 ATTN_SHAPE = dict(B=4, Hq=25, Hkv=5, S=2048, D=64)
@@ -152,8 +174,35 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "step_device_busy_share", "earlier", "no_clen_ms",
                  "bound_no_clen", "phase_ms", "service_path_launches",
                  "campaign_path_launches", "moe_path_launches",
-                 "moe_shape", "train_path_launches")
+                 "moe_shape", "train_path_launches",
+                 "dryrun_path_launches")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
+# the dry run: the sweep's meshes (multi_pod, and None for every arch x
+# shape or the (arch, shape) cells to run). Every cell on both meshes took
+# 136.4 s in 8 workers on the host of one H100 80GB HBM3 (700 W), over the
+# phase's ~120 s, so the multi-pod mesh is cut to two cells: the
+# reference's own slow cell and the largest state per device. Then the
+# worker processes, and the real cells of hymba_1_5b on one card: (kind,
+# seq_len, global batch, timed steps); prefill as serve runs it (flash),
+# decode at batch 4 over a 2048-slot ring, train at train_phase's 4 x 4096
+# with remat and blockwise attention
+DRY_SWEEP = ((False, None),
+             (True, (("mamba2_370m", "decode_32k"),
+                     ("llama4_maverick_400b_a17b", "train_4k"))))
+DRY_WORKERS = 8
+DRY_ARCH = "hymba_1_5b"
+DRY_CELLS = (("prefill", 2048, 4, 3), ("decode", 2048, 4, 5),
+             ("train", 4096, 4, 1))
+# the JAX examples' IIs on the CPU (examples/quickstart.py and
+# examples/map_jax_loop.py at 4x4); tests/test_torch_examples.py holds the
+# torch examples to them
+EXAMPLE_IIS = {
+    "quickstart_torch": ["mapped at II=3 (MII=3)"],
+    "map_torch_loop": [
+        "rope_rotation nodes=12 MII=3 II(paper-faithful)=3 II(+routing)=3",
+        "router_argmax nodes= 5 MII=2 II(paper-faithful)=3 II(+routing)=3",
+        "ssd_recurrence nodes= 8 MII=3 II(paper-faithful)=3 II(+routing)=3"]}
+EXAMPLES_TIMEOUT_S = 600
 
 
 def emit(phase, **kw):
@@ -2308,15 +2357,345 @@ def train_phase(torch, smi):
     return launches
 
 
+# ------------------------------------------------------------- dry run
+def _dry_cell(arch, shape, multi_pod):
+    """One sweep cell, in a worker process: as the dry run's CLI runs it,
+    with the L=1/L=2 probes on the pod mesh."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    run = dryrun.run_cell if multi_pod else dryrun.run_cell_with_probes
+    rec = run(arch, shape, multi_pod)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_sweep(torch, smi):
+    """``run_cell`` for every arch x shape of ``DRY_SWEEP``'s meshes on
+    the meta device, in ``DRY_WORKERS`` spawned host processes (the trace
+    is host work; the card is not touched). Gates: every applicable cell
+    ``ok``, the skips exactly ``shape_applicable``'s, every cell's
+    ``argument_bytes`` equal to the value from the specs. The records go
+    to ``build/chip_smoke_dryrun/sweep.jsonl``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import SHAPES, shape_applicable
+    cells = [(a, s, mp) for mp, only in DRY_SWEEP for a in ARCHS
+             for s in SHAPES if only is None or (a, s) in only]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(DRY_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as ex:
+        futures = [ex.submit(_dry_cell, *c) for c in cells]
+        recs = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "sweep.jsonl"), "w") as f:
+        for rec in recs:
+            f.write(json.dumps(rec) + "\n")
+    card = torch.cuda.get_device_properties(0).total_memory
+    rows, bad, fits = [], [], 0
+    for (arch, shape, mp), rec in zip(cells, recs):
+        cfg = get_config(arch)
+        mesh = make_production_mesh(multi_pod=mp)
+        ok, why = shape_applicable(cfg, SHAPES[shape])
+        key = f"{arch}/{shape}/{mesh.name}"
+        if not ok:
+            if rec != {"arch": arch, "shape": shape, "mesh": mesh.name,
+                       "kind": SHAPES[shape].kind, "status": "skipped",
+                       "reason": why, "wall_s": rec.get("wall_s")}:
+                bad.append((key, "not skipped as shape_applicable", rec))
+            continue
+        want = dryrun.argument_bytes(cfg, SHAPES[shape], mesh)
+        if rec.get("status") != "ok":
+            bad.append((key, rec.get("status"), rec.get("error")))
+            continue
+        if rec["memory"]["argument_bytes"] != want:
+            bad.append((key, "argument_bytes", rec["memory"]["argument_bytes"],
+                        want))
+        total = rec["memory"]["total_bytes"]
+        fits += total <= card
+        rows.append([key, total / 2 ** 30, total <= card,
+                     rec["cost"]["flops"], rec["cost"]["bytes_accessed"],
+                     rec["roofline"]["bottleneck"], rec["roofline"]["step_s"],
+                     rec["trace_s"], rec["wall_s"]])
+    if bad:
+        raise AssertionError(f"dry-run sweep: {bad[:4]}")
+    emit("dryrun_sweep", nvidia_smi=smi, cells=len(cells), ok=len(rows),
+         skipped=len(cells) - len(rows), workers=DRY_WORKERS,
+         wall_s=wall, meshes=[["2x16x16" if mp else "16x16",
+                               "all" if only is None else only]
+                              for mp, only in DRY_SWEEP],
+         card_bytes=card, fit_per_device=fits,
+         columns=["cell", "GiB_per_device", "fits_card", "flops_per_device",
+                  "bytes_per_device", "bottleneck", "roofline_step_s",
+                  "trace_s", "wall_s"], rows=rows,
+         per_device="argument bytes exact; cost and temp an even split of "
+                    "the global trace")
+
+
+def _dry_real_args(torch, lm, shp, gen):
+    """Real tensors on the card for one cell's step: (the arguments beside
+    the parameters, the step, its call arguments)."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    dev, b, s = lm.device, shp.global_batch, shp.seq_len
+    tokens = torch.randint(0, lm.cfg.vocab, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if shp.kind == "train":
+        batch = {"tokens": tokens, "labels": torch.randint(
+            0, lm.cfg.vocab, (b, s), generator=gen, device=dev,
+            dtype=torch.int32)}
+        opt = adamw.init(dict(lm.named_parameters()))
+        return [opt, batch], steps.make_train_step(lm), (opt, batch)
+    if shp.kind == "prefill":
+        return [{"tokens": tokens}], steps.make_prefill_step(lm), (
+            {"tokens": tokens},)
+    window = min(s, lm.cfg.attn_window) if lm.cfg.attn_window else s
+    cache = lm.init_cache(b, window)
+    t = torch.tensor(s, dtype=torch.int32, device=dev)
+    return [cache, tokens[:, :1], t], steps.make_decode_step(lm), (
+        cache, tokens[:, :1], s)
+
+
+def _tensor_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _flash_op_cost(torch, lm, tokens, smi):
+    """The cost of calling flash through its torch.library operator, against
+    the launch called straight from the wrapper (as before the operator):
+    hymba's prefill (host wall, synchronised) in turns op, direct, direct,
+    op, and the host time of one call on a tiny bf16 input. Not counted in
+    any launch count (a comparison, not the path)."""
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    op = ops._OP
+
+    def prefill_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(tokens)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def call_us(n=2000):
+        q = torch.zeros(1, 1, 16, 16, dtype=torch.bfloat16, device=lm.device)
+        for _ in range(50):
+            flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            flash_attention(q, q, q)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return host / n * 1e6
+
+    res = {"op": [], "direct": []}
+    calls = {"op": [], "direct": []}
+    for mode in ("op", "direct", "direct", "op"):
+        ops._OP = op if mode == "op" else ops._launch
+        try:
+            prefill_s()
+            res[mode] += [prefill_s() for _ in range(3)]
+            calls[mode].append(call_us())
+        finally:
+            ops._OP = op
+    emit("flash_op_cost", nvidia_smi=smi, arch=lm.cfg.name,
+         prefill_shape=list(tokens.shape),
+         prefill_s_op=res["op"], prefill_s_direct=res["direct"],
+         prefill_s_op_median=statistics.median(res["op"]),
+         prefill_s_direct_median=statistics.median(res["direct"]),
+         call_us_op=calls["op"], call_us_direct=calls["direct"],
+         note="op: wrapper -> torch.ops.repro_torch.flash_attention -> "
+              "launch; direct: wrapper -> launch (the path before the "
+              "operator)")
+
+
+def dryrun_real_cells(torch, smi):
+    """hymba_1_5b at its published widths, bf16, seeded weights, on a 1x1
+    mesh: the dry run of each of ``DRY_CELLS`` on the meta device, then
+    the same step on the card. Gates: the meta FLOPs equal
+    FlopCounterMode's over the real step on cuda, and argument_bytes the
+    bytes of the real parameters, state, batch and cache. Printed:
+    predicted peak (argument + temp bytes) against max_memory_allocated,
+    the step's CUDA-event time against the roofline's step_s, and model
+    FLOPs against the bf16 peak. Returns the kernels' launch counts over
+    the real cells (counts set to 0 just before, read just after)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import reset_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import LM
+    dev = torch.device("cuda", 0)
+    cfg = get_config(DRY_ARCH)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    param_bytes = _tensor_bytes(dict(lm.named_parameters()))
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    reset_counts()
+    flash = counters["flash_attention"]
+    prefill_runs = 0
+    for kind, seq, batch, reps in DRY_CELLS:
+        shp = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        over = {"attn_impl": "flash"} if kind == "prefill" else {}
+        rec = dryrun.run_cell(DRY_ARCH, shp, False, over or None, mesh=mesh)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run of {shp}: {rec}")
+        with swapped_cfg(lm, **over):
+            args, fn, fargs = _dry_real_args(torch, lm, shp, gen)
+            real_bytes = param_bytes + _tensor_bytes(args)
+            if real_bytes != rec["memory"]["argument_bytes"]:
+                raise AssertionError(
+                    f"{shp.name}: argument_bytes {rec['memory']['argument_bytes']}"
+                    f" from the specs, {real_bytes} in the real tensors")
+            torch.cuda.synchronize()
+            with FlopCounterMode(display=False) as fc:
+                fn(*fargs)
+            torch.cuda.synchronize()
+            cuda_flops = fc.get_total_flops()
+            if cuda_flops != rec["cost_global"]["flops"]:
+                raise AssertionError(
+                    f"{shp.name}: {rec['cost_global']['flops']} FLOPs on "
+                    f"meta, {cuda_flops} on cuda")
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(reps):
+                s, e = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                s.record()
+                fn(*fargs)
+                e.record()
+                torch.cuda.synchronize()
+                ms.append(s.elapsed_time(e))
+            peak = torch.cuda.max_memory_allocated()
+            prefill_runs += (1 + reps) * (kind == "prefill")
+        step_s = statistics.median(ms) / 1e3
+        predicted = rec["memory"]["argument_bytes"] + \
+            rec["memory"]["temp_bytes"]
+        extra = {}
+        if kind == "train":
+            _, parts = train_model_flops(cfg, batch, seq)
+            extra = {"train_model_flops": sum(parts.values()),
+                     "train_model_flops_share_of_bf16_peak":
+                         sum(parts.values()) / step_s / BF16_TENSOR_FLOPS}
+        emit("dryrun_real", nvidia_smi=smi, arch=cfg.name, cell=shp.name,
+             kind=kind, seq_len=seq, global_batch=batch, mesh=mesh.name,
+             attn_impl=over.get("attn_impl", cfg.attn_impl),
+             meta_flops=rec["cost_global"]["flops"], cuda_flops=cuda_flops,
+             argument_bytes=rec["memory"]["argument_bytes"],
+             real_argument_bytes=real_bytes,
+             temp_bytes=rec["memory"]["temp_bytes"],
+             predicted_peak_bytes=predicted, max_memory_allocated=peak,
+             peak_predicted_over_measured=predicted / peak,
+             bytes_accessed=rec["cost_global"]["bytes_accessed"],
+             roofline=rec["roofline"], step_ms=ms, step_s_median=step_s,
+             share_of_roofline=rec["roofline"]["step_s"] / step_s,
+             model_flops=rec["model_flops_global"],
+             model_flops_share_of_bf16_peak=rec["model_flops_global"]
+             / step_s / BF16_TENSOR_FLOPS,
+             trace_s=rec["trace_s"], **extra)
+        del args, fargs, fn
+        torch.cuda.empty_cache()
+    launches = {name: f.launches for name, f in counters.items()}
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.n_layers * prefill_runs
+    if launches != want or flash.route_launches["tensor_core"] != \
+            want["flash_attention"]:
+        raise AssertionError(f"dry-run cells launched {launches} "
+                             f"({flash.route_launches}), expected {want}, "
+                             f"flash all on the tensor cores")
+    for p in lm.parameters():
+        p.requires_grad_(False)
+    prompts = torch.randint(0, cfg.vocab, (4, 2048), generator=gen,
+                            device=dev)
+    with swapped_cfg(lm, attn_impl="flash"):
+        _flash_op_cost(torch, lm, prompts, smi)
+    del lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_phase(torch, smi):
+    """The dry run: the meta-device sweep over every cell, then three real
+    hymba cells held against their dry runs. Returns the kernels' launch
+    counts of the real cells."""
+    t0 = time.perf_counter()
+    dryrun_sweep(torch, smi)
+    sweep_s = time.perf_counter() - t0
+    launches = dryrun_real_cells(torch, smi)
+    emit("dryrun_phase", sweep_s=sweep_s,
+         seconds=time.perf_counter() - t0, launches=launches)
+    return launches
+
+
+def examples_phase(smi):
+    """The four examples in subprocesses on cuda, started together: the
+    quickstart and the torch-loop mapper gated on exit 0 and their IIs
+    (the JAX examples' IIs; tests/test_torch_examples.py holds them to the
+    reference), the LM trainer on exit 0 and finite loss lines, the
+    portfolio mapper on exit 0, with its wall time printed."""
+    runs = {"quickstart_torch": [], "map_torch_loop": [],
+            "train_lm_torch": ["--steps", "20"],
+            "portfolio_mapper_torch": []}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {name: (subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name + ".py"),
+         *args, "--device", "cuda"], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE), time.perf_counter())
+        for name, args in runs.items()}
+    out = {}
+    try:
+        for name, (proc, start) in procs.items():
+            stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            out[name] = (proc.returncode, stdout, stderr,
+                         time.perf_counter() - start)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    failed = {n: (rc, err[-800:]) for n, (rc, _, err, _) in out.items() if rc}
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    lines = {n: o[1].splitlines() for n, o in out.items()}
+    iis = {"quickstart_torch": [ln.split(" in ")[0] for ln in
+                                lines["quickstart_torch"]
+                                if ln.startswith("mapped at")],
+           "map_torch_loop": [" ".join(ln.split()) for ln in
+                              lines["map_torch_loop"] if "II(" in ln]}
+    if iis != EXAMPLE_IIS:
+        raise AssertionError(f"example IIs {iis}, expected {EXAMPLE_IIS}")
+    losses = [float(ln.split("loss=")[1].split()[0])
+              for ln in lines["train_lm_torch"] if ln.startswith("step ")]
+    if len(losses) < 2 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_lm_torch losses {losses}")
+    emit("examples", nvidia_smi=smi, wall_s=wall,
+         seconds={n: o[3] for n, o in out.items()}, iis=iis,
+         train_losses=losses,
+         portfolio=lines["portfolio_mapper_torch"][-4:],
+         portfolio_wall_s=out["portfolio_mapper_torch"][3])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(root, "src"))
-    import repro_torch                      # fails without the port
+    import repro_torch
     from repro_torch.kernels import _cuda
     torch.cuda.set_device(0)
     # f32 products in full f32 (no TF32), for the kernels' plain versions
@@ -2383,6 +2762,10 @@ def main() -> int:
     moe_f32_agreement_phase(torch)
     torch.cuda.empty_cache()
     train_launches = train_phase(torch, smi)
+    t0 = time.perf_counter()
+    dry_launches = dryrun_phase(torch, smi)
+    examples_phase(smi)
+    emit("dryrun_and_examples", seconds=time.perf_counter() - t0)
     times.update(lm_times)
     moe_row = times.pop("flash_attention_moe")
     times["flash_attention"].update(
@@ -2408,6 +2791,7 @@ def main() -> int:
              "src/repro/kernels/ssd_scan/kernel.py:61")):
         t = times[name]
         t["train_path_launches"] = train_launches[name]
+        t["dryrun_path_launches"] = dry_launches[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
         if name.startswith("clause_eval"):

@@ -8,12 +8,26 @@ on the SIMT kernel. The kernels take any Sq and Sk and any strides on the
 B, H and S axes (16-byte aligned ones for the tensor cores), so the JAX
 wrapper's padding to block multiples and the model's swapped views need
 no copies.
+
+The wrapper calls the operator ``torch.ops.repro_torch.flash_attention``
+(defined here through ``torch.library``): its CPU kernel is the plain
+version, its CUDA kernel the launch, and its fake kernel gives the
+output's shape, dtype and strides, so the meta device and fake tensors
+trace through it (the dry run, ``repro_torch.launch.dryrun``). Its FLOP
+formula (:func:`flash_flops`, 4·D per visible (q, k) pair per q head,
+``torch.utils.flop_counter``) lets ``FlopCounterMode`` count the same
+FLOPs on meta and on cuda; without it a ctypes launch is invisible to any
+dispatch mode. The operator is defined with ``torch.library.Library``
+rather than ``torch.library.custom_op``, whose wrapper costs several
+times as much per call; the launch counts stay on the wrapper.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .kernel import flash_attention_cuda
 from .ref import attention_ref
@@ -82,19 +96,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "differentiate its Pallas kernel either (jax.grad raises), and "
             "training uses attn_impl=\"blockwise\"; call it under "
             "torch.no_grad() or on tensors that do not require grad")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _OP(q, k, v, bool(causal), int(window), int(q_offset))
+
+
+def _plain(q, k, v, causal, window, q_offset):
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def _launch(q, k, v, causal, window, q_offset):
     route, copies = flash_route(q, k, v)
     q, k, v = (t.contiguous() if c else t for t, c in zip((q, k, v), copies))
     out = flash_attention_cuda(q, k, v, route=route, causal=causal,
-                               window=int(window), q_offset=int(q_offset))
+                               window=window, q_offset=q_offset)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     flash_attention.layout_copies += sum(copies)
     return out
+
+
+def _fake(q, k, v, causal, window, q_offset):
+    # the kernel's output has q's strides (``flash_attention_cuda``)
+    return torch.empty_like(q)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """(query, key) pairs the masks leave visible: query i at absolute
+    position q_offset + i sees key j when j <= q_offset + i (causal) and
+    j > q_offset + i - window (a window)."""
+    pos = np.arange(q_offset, q_offset + sq, dtype=np.int64)
+    hi = np.minimum(pos, sk - 1) if causal else np.full_like(pos, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros_like(pos)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset, *args,
+                out_shape=None, **kwargs) -> int:
+    """4·D FLOPs (QK^T and PV) per visible (q, k) pair per q head."""
+    b, hq, sq, d = q_shape
+    return 4 * d * b * hq * visible_pairs(sq, k_shape[2], causal, window,
+                                          q_offset)
+
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int q_offset) -> Tensor")
+_LIB.impl("flash_attention", _plain, "CPU")
+_LIB.impl("flash_attention", _launch, "CUDA")
+torch.library.register_fake("repro_torch::flash_attention", _fake, lib=_LIB)
+register_flop_formula(torch.ops.repro_torch.flash_attention)(flash_flops)
+_OP = torch.ops.repro_torch.flash_attention.default
 
 
 def reset_counts() -> None:
@@ -108,4 +162,5 @@ def reset_counts() -> None:
 # operands it copied to a contiguous layout first (the CPU route counts none)
 reset_counts()
 
-__all__ = ["flash_attention", "flash_route", "attention_ref", "reset_counts"]
+__all__ = ["flash_attention", "flash_route", "attention_ref", "reset_counts",
+           "flash_flops", "visible_pairs"]

@@ -9,11 +9,15 @@ in the reference's [in, out] layout (routed experts [E, in, out]);
 ``state_dict()`` keys are the tree's paths joined by dots
 (``blocks.attn.wq``, ``blocks.moe.shared.w_up``), which is what
 ``repro_torch.convert.lm_params_from_numpy`` produces. The port runs on
-one GPU, so the head plan is read at tp=1, there are no sharding
+one GPU, so a real LM reads the head plan at tp=1, there are no sharding
 constraints, and ``fsdp_experts`` (the reference's FSDP sharding of
 expert weights over the data axes) has nothing to shard: every expert
-lives on the one card. The layers run in a Python loop over the stacked
-layer axis (the reference scans), and ``decode_step`` updates the
+lives on the one card. The dry run (``repro_torch.launch.dryrun``) builds
+the LM on the meta device at a mesh's TP degree (``LM(cfg, "meta",
+tp=16)``: the reference's padded head plan and vocabulary), and reads
+each leaf's layout from :func:`param_specs` and :func:`cache_specs`.
+The layers run in a Python loop over the stacked layer axis (the
+reference scans), and ``decode_step`` updates the
 ring-buffer cache in place (the reference returns a new one). With
 ``kv_quant`` the cache holds int8 ``k``/``v`` with f32 per-(position,
 head) scales: a decode step dequantizes each layer's ring to the model
@@ -41,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import layers
 from .config import ModelConfig
-from .sharding import AttnPlan, pad_to, plan_attention
+from .sharding import (AttnPlan, Spec, pad_to, plan_attention, spec,
+                       tp_size)
 
 Params = Dict[str, Any]
 _F32_LEAVES = ("dt_bias", "A_log", "D")   # f32 whatever the model dtype
@@ -56,75 +61,147 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise ValueError(cfg.family)
 
 
-def _block_shapes(cfg: ModelConfig, plan: Optional[AttnPlan]
-                  ) -> Dict[str, Tuple[int, ...]]:
-    """Leaf name -> shape for ONE block (unstacked), in the reference's
-    order (the order ``LM.init`` draws them in)."""
+def _block_leaves(cfg: ModelConfig, plan: Optional[AttnPlan]
+                  ) -> Dict[str, Tuple[Tuple[int, ...], Tuple[Any, ...]]]:
+    """Leaf name -> (shape, logical axes) for ONE block (unstacked), in the
+    reference's order (the order ``LM.init`` draws them in)."""
     d, hd = cfg.d_model, cfg.head_dim
-    out: Dict[str, Tuple[int, ...]] = {"ln1": (d,)}
+    out: Dict[str, Tuple[Tuple[int, ...], Tuple[Any, ...]]] = {}
+
+    def add(name, shape, *axes):
+        out[name] = (shape, axes)
+
+    add("ln1", (d,), None)
     if not cfg.is_attention_free:
-        out["attn.wq"] = (d, plan.h_pad * hd)
-        out["attn.wk"] = (d, plan.kv_virtual * hd)
-        out["attn.wv"] = (d, plan.kv_virtual * hd)
-        out["attn.wo"] = (plan.h_pad * hd, d)
+        add("attn.wq", (d, plan.h_pad * hd), None, "model")
+        add("attn.wk", (d, plan.kv_virtual * hd), None, "model")
+        add("attn.wv", (d, plan.kv_virtual * hd), None, "model")
+        add("attn.wo", (plan.h_pad * hd, d), "model", None)
         if cfg.qkv_bias:
-            out["attn.bq"] = (plan.h_pad * hd,)
-            out["attn.bk"] = (plan.kv_virtual * hd,)
-            out["attn.bv"] = (plan.kv_virtual * hd,)
+            add("attn.bq", (plan.h_pad * hd,), "model")
+            add("attn.bk", (plan.kv_virtual * hd,), "model")
+            add("attn.bv", (plan.kv_virtual * hd,), "model")
     if cfg.has_ssm:
         h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         di = h * hp
-        out.update({
-            "ssm.w_z": (d, di), "ssm.w_x": (d, di), "ssm.w_B": (d, n),
-            "ssm.w_C": (d, n), "ssm.w_dt": (d, h),
-            "ssm.conv_x": (cfg.d_conv, di), "ssm.conv_B": (cfg.d_conv, n),
-            "ssm.conv_C": (cfg.d_conv, n), "ssm.dt_bias": (h,),
-            "ssm.A_log": (h,), "ssm.D": (h,), "ssm.norm": (di,),
-            "ssm.w_out": (di, d)})
+        add("ssm.w_z", (d, di), None, "model")
+        add("ssm.w_x", (d, di), None, "model")
+        add("ssm.w_B", (d, n), None, None)
+        add("ssm.w_C", (d, n), None, None)
+        add("ssm.w_dt", (d, h), None, None)
+        add("ssm.conv_x", (cfg.d_conv, di), None, "model")
+        add("ssm.conv_B", (cfg.d_conv, n), None, None)
+        add("ssm.conv_C", (cfg.d_conv, n), None, None)
+        add("ssm.dt_bias", (h,), None)
+        add("ssm.A_log", (h,), None)
+        add("ssm.D", (h,), None)
+        add("ssm.norm", (di,), "model")
+        add("ssm.w_out", (di, d), "model", None)
     if cfg.family == "hybrid":
-        out["mix"] = (2,)
+        add("mix", (2,), None)
     if cfg.n_experts:
         e, f = cfg.n_experts, cfg.d_ff
-        out["ln2"] = (d,)
-        out["moe.router"] = (d, e)
-        out["moe.w_gate"] = (e, d, f)
-        out["moe.w_up"] = (e, d, f)
-        out["moe.w_down"] = (e, f, d)
+        dax = "fsdp" if cfg.fsdp_experts else None
+        add("ln2", (d,), None)
+        add("moe.router", (d, e), None, None)
+        add("moe.w_gate", (e, d, f), "expert", dax, None)
+        add("moe.w_up", (e, d, f), "expert", dax, None)
+        add("moe.w_down", (e, f, d), "expert", dax, None)
         if cfg.n_shared_experts:
             fs = cfg.n_shared_experts * f
-            out["moe.shared.w_gate"] = (d, fs)
-            out["moe.shared.w_up"] = (d, fs)
-            out["moe.shared.w_down"] = (fs, d)
+            add("moe.shared.w_gate", (d, fs), None, "model")
+            add("moe.shared.w_up", (d, fs), None, "model")
+            add("moe.shared.w_down", (fs, d), "model", None)
     elif cfg.d_ff:
-        out["ln2"] = (d,)
-        out["mlp.w_gate"] = (d, cfg.d_ff)
-        out["mlp.w_up"] = (d, cfg.d_ff)
-        out["mlp.w_down"] = (cfg.d_ff, d)
+        add("ln2", (d,), None)
+        add("mlp.w_gate", (d, cfg.d_ff), None, "model")
+        add("mlp.w_up", (d, cfg.d_ff), None, "model")
+        add("mlp.w_down", (cfg.d_ff, d), "model", None)
         if cfg.mlp_bias:
-            out["mlp.b_gate"] = (cfg.d_ff,)
-            out["mlp.b_up"] = (cfg.d_ff,)
-            out["mlp.b_down"] = (d,)
+            add("mlp.b_gate", (cfg.d_ff,), "model")
+            add("mlp.b_up", (cfg.d_ff,), "model")
+            add("mlp.b_down", (d,), None)
     return out
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
-                                                        torch.dtype]]:
-    """Every parameter of the LM of ``cfg``: dotted name -> (shape, dtype),
-    block leaves stacked on a leading ``n_layers`` axis. The names are the
-    JAX parameter tree's paths joined by dots."""
+def _top_leaves(cfg: ModelConfig, vocab_pad: int
+                ) -> Dict[str, Tuple[Tuple[int, ...], Tuple[Any, ...]]]:
+    """embed is d-sharded (local gather); lm_head is vocab-sharded."""
+    out = {"embed": ((vocab_pad, cfg.d_model), (None, "model")),
+           "final_norm": ((cfg.d_model,), (None,))}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((cfg.d_model, vocab_pad), (None, "vocab"))
+    return out
+
+
+def _layout(cfg: ModelConfig, tp: int) -> Tuple[Optional[AttnPlan], int]:
+    """The reference's head plan and padded vocabulary at TP degree ``tp``,
+    with its checks (``src/repro/models/model.py`` ``LM.__init__``)."""
     _check_supported(cfg)
     plan = None if cfg.is_attention_free else plan_attention(
-        cfg.n_heads, cfg.n_kv_heads, 1)
+        cfg.n_heads, cfg.n_kv_heads, tp)
+    if cfg.has_ssm and (cfg.ssm_heads * cfg.ssm_head_dim) % tp:
+        raise ValueError(f"{cfg.name}: ssm heads*dim "
+                         f"{cfg.ssm_heads * cfg.ssm_head_dim} must divide "
+                         f"TP {tp}")
+    if cfg.d_ff and cfg.d_ff % tp:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} must divide TP {tp}")
+    return plan, pad_to(cfg.vocab, tp)
+
+
+def param_shapes(cfg: ModelConfig, tp: int = 1
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Every parameter of the LM of ``cfg`` at TP degree ``tp``: dotted
+    name -> (shape, dtype), block leaves stacked on a leading ``n_layers``
+    axis. The names are the JAX parameter tree's paths joined by dots.
+    ``dt_bias``, ``A_log`` and ``D`` are f32 whatever the model dtype, as
+    the reference's ``LM.init`` makes them (its ``param_shapes`` writes
+    the model dtype for them)."""
+    plan, vocab_pad = _layout(cfg, tp)
     dt, L = _dtype(cfg), cfg.n_layers
     out = {}
-    for name, shape in _block_shapes(cfg, plan).items():
+    for name, (shape, _) in _block_leaves(cfg, plan).items():
         leaf_dt = torch.float32 if name.split(".")[-1] in _F32_LEAVES else dt
         out[f"blocks.{name}"] = ((L, *shape), leaf_dt)
-    vocab_pad = pad_to(cfg.vocab, 1)
-    out["embed"] = ((vocab_pad, cfg.d_model), dt)
-    out["final_norm"] = ((cfg.d_model,), dt)
-    if not cfg.tie_embeddings:
-        out["lm_head"] = ((cfg.d_model, vocab_pad), dt)
+    for name, (shape, _) in _top_leaves(cfg, vocab_pad).items():
+        out[name] = (shape, dt)
+    return out
+
+
+def param_specs(cfg: ModelConfig, mesh: Any) -> Dict[str, Spec]:
+    """Every parameter's spec on ``mesh``, keyed as :func:`param_shapes`
+    (the reference's ``LM.param_specs``; block leaves carry a replicated
+    leading layer axis)."""
+    plan, vocab_pad = _layout(cfg, tp_size(mesh))
+    out = {f"blocks.{name}": spec(mesh, None, *axes)
+           for name, (_, axes) in _block_leaves(cfg, plan).items()}
+    out.update({name: spec(mesh, *axes)
+                for name, (_, axes) in _top_leaves(cfg, vocab_pad).items()})
+    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh: Any, batch: Optional[int] = None
+                ) -> Dict[str, Spec]:
+    """The decode cache's specs on ``mesh``, keyed as
+    :meth:`LM.cache_shapes` (the reference's ``LM.cache_specs``);
+    ``batch=1`` (long_500k) falls back to a replicated batch axis."""
+    m, bs = mesh, batch
+    out: Dict[str, Spec] = {}
+    if not cfg.is_attention_free:
+        out["k"] = spec(m, None, "batch", None, "model", None, batch_size=bs)
+        out["v"] = spec(m, None, "batch", None, "model", None, batch_size=bs)
+        if cfg.kv_quant:
+            out["k_scale"] = spec(m, None, "batch", None, "model",
+                                  batch_size=bs)
+            out["v_scale"] = spec(m, None, "batch", None, "model",
+                                  batch_size=bs)
+        out["pos"] = spec(m, None, "batch", None, batch_size=bs)
+    if cfg.has_ssm:
+        out["state"] = spec(m, None, "batch", "model", None, None,
+                            batch_size=bs)
+        out["conv_x"] = spec(m, None, "batch", None, "model", batch_size=bs)
+        out["conv_B"] = spec(m, None, "batch", None, None, batch_size=bs)
+        out["conv_C"] = spec(m, None, "batch", None, None, batch_size=bs)
     return out
 
 
@@ -132,18 +209,25 @@ class LM(nn.Module):
     """The LM of ``cfg`` on ``device`` (default: the port's default
     device, ``cuda`` unless ``repro_torch.set_default_device("cpu")``).
     Parameters start uninitialised: fill them with :meth:`init` or
-    ``load_state_dict(convert.lm_params_from_numpy(tree, cfg))``."""
+    ``load_state_dict(convert.lm_params_from_numpy(tree, cfg))``.
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    ``tp`` is the TP degree whose head plan and padded vocabulary the
+    parameters take. One device runs tp=1; only the meta device builds a
+    larger one (the dry run's), and a real device with ``tp > 1`` raises
+    ``ValueError``."""
+
+    def __init__(self, cfg: ModelConfig, device=None, tp: int = 1):
         super().__init__()
-        shapes = param_shapes(cfg)
-        self.cfg = cfg
         self.device = (torch.device(device) if device is not None
                        else resolve_device())
-        self.plan: Optional[AttnPlan] = None
-        if not cfg.is_attention_free:
-            self.plan = plan_attention(cfg.n_heads, cfg.n_kv_heads, 1)
-        self.vocab_pad = pad_to(cfg.vocab, 1)
+        if tp != 1 and self.device.type != "meta":
+            raise ValueError(f"LM(tp={tp}) on {self.device}: a padded "
+                             f"tensor-parallel plan is built on the meta "
+                             f"device only (one device runs tp=1)")
+        shapes = param_shapes(cfg, tp)
+        self.cfg = cfg
+        self.tp = tp
+        self.plan, self.vocab_pad = _layout(cfg, tp)
         self.dtype = _dtype(cfg)
         for name, (shape, dt) in shapes.items():
             *path, leaf = name.split(".")
@@ -175,7 +259,7 @@ class LM(nn.Module):
         deepseek_moe_16b's widths one expert leaf is 10 GB in bf16. The
         numbers differ from JAX's: carry a JAX tree across with
         ``lm_params_from_numpy``."""
-        for name in param_shapes(self.cfg):
+        for name in param_shapes(self.cfg, self.tp):
             base = name.split(".")[-1]
             leaf = self._leaf(name)
             if not name.startswith("blocks."):

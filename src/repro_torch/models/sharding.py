@@ -1,16 +1,110 @@
-"""The attention head plan of the JAX package's ``models/sharding.py``.
+"""Sharding rules: logical axes -> mesh axes, and the attention head plan
+(a copy of the JAX package's ``models/sharding.py``).
 
-The port runs on one GPU and reads the plan at tp=1, where for every
-supported architecture ``h_pad == n_heads`` and ``kv_virtual == n_kv``;
-the plan is kept so that parameter shapes, the dead-head mask and the
-weight conversion follow the reference's layout exactly. The mesh helpers
-(``spec``, ``batch_axes``, ``tp_size``, ``dp_size``) have no single-GPU
-counterpart and are not copied.
+Mesh axes: ("pod", "data", "model") multi-pod, ("data", "model") single-pod.
+Logical tensor axes used by the model code:
+
+  batch   -> ("pod", "data")         data parallelism (+ pod axis)
+  model   -> "model"                 tensor parallelism
+  vocab   -> "model"
+  expert  -> "model"                 expert parallelism
+  fsdp    -> ("pod", "data")         weights sharded over the data axes
+  None    -> replicated
+
+A mesh is anything with ``axis_names`` and a ``{axis: size}`` ``shape``:
+the port's ``repro_torch.launch.mesh.LogicalMesh`` (one card has no
+``jax.sharding.Mesh``). A spec is a tuple whose entries are None, an axis
+name, or a tuple of axis names, as ``jax.sharding.PartitionSpec`` holds
+them (a one-axis tuple is written as the axis name, and an empty one as
+None, as ``PartitionSpec`` normalises them). ``shard_shape`` gives the
+per-device shape that ``NamedSharding(mesh, spec).shard_shape`` gives.
+Nothing here places a tensor: the port runs on one device, and the specs
+are read by the dry run (``repro_torch.launch.dryrun``) to count each
+device's bytes.
+
+Indivisible head counts are handled by the *attention plan*: q-heads are
+padded (zero o_proj rows keep the function exact) and kv heads are expanded
+to "virtual" heads (vLLM-style replication) so that every sharded axis is
+divisible by the TP degree and all attention math stays shard-local. On one
+card the plan is read at tp=1, where ``h_pad == n_heads`` and
+``kv_virtual == n_kv`` for every supported architecture; the dry run reads
+it at the mesh's TP degree.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple, Union
+
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+
+def batch_axes(mesh: Any) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _entry(axes: Tuple[str, ...]) -> Entry:
+    """A tuple of mesh axes as one spec entry, normalised as
+    ``PartitionSpec`` normalises it."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def spec(mesh: Any, *axes, batch_size: Optional[int] = None) -> Spec:
+    """Translate logical axes to a spec for this mesh.
+
+    ``batch_size``: when given, the "batch" logical axis falls back to
+    replicated if the size does not divide the data-parallel degree
+    (e.g. the global_batch=1 long-context decode shape)."""
+    out = []
+    for a in axes:
+        if a == "batch":
+            ba: Entry = _entry(batch_axes(mesh))
+            if batch_size is not None and batch_size % dp_size(mesh):
+                ba = None
+            out.append(ba)
+        elif a in ("model", "vocab", "expert"):
+            out.append("model")
+        elif a == "fsdp":
+            # weight sharding over the data axes (ZeRO-3 style); shares the
+            # batch axes
+            out.append(_entry(batch_axes(mesh)))
+        elif a is None:
+            out.append(None)
+        else:
+            raise ValueError(f"unknown logical axis {a!r}")
+    return tuple(out)
+
+
+def tp_size(mesh: Any) -> int:
+    return mesh.shape["model"]
+
+
+def dp_size(mesh: Any) -> int:
+    return math.prod(mesh.shape[a] for a in batch_axes(mesh))
+
+
+def shard_shape(shape: Tuple[int, ...], sp: Spec, mesh: Any
+                ) -> Tuple[int, ...]:
+    """The per-device shape of a tensor of ``shape`` laid out by ``sp``
+    on ``mesh``: each dimension divided by the product of the sizes of
+    the mesh axes its entry names. A dimension that those sizes do not
+    divide raises ``ValueError``, as ``NamedSharding.shard_shape`` does."""
+    if len(sp) > len(shape):
+        raise ValueError(f"spec {sp} has more entries than shape {shape}")
+    out = []
+    for i, dim in enumerate(shape):
+        entry = sp[i] if i < len(sp) else None
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        parts = math.prod(mesh.shape[a] for a in names)
+        if dim % parts:
+            raise ValueError(f"spec {sp} splits axis {i} of {shape} into "
+                             f"{parts} parts, which do not divide {dim}")
+        out.append(dim // parts)
+    return tuple(out)
 
 
 @dataclass(frozen=True)

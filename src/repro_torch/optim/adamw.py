@@ -15,14 +15,21 @@ Deliberate difference: ``update`` writes the parameters, m and v in place
 trees; so it runs under ``torch.no_grad()``. ``torch.optim.AdamW`` is not
 used: its clipping, warm-up and decay differ.
 
-One card has no data axis to shard the state over, so ``zero1_spec`` and
-``state_specs`` are the single-device identity.
+The state's layout on a mesh is the reference's ZeRO-1: ``state_specs``
+gives each moment the parameter's spec plus its first unsharded axis that
+the data-parallel degree divides, split over the data axes
+(``zero1_spec``). The port runs on one card, where the data-parallel
+degree is 1 and the layout is the parameter's own; the dry run
+(``repro_torch.launch.dryrun``) reads it to count each device's bytes of
+the state on the reference's production meshes.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
+
+from ..models.sharding import Spec, batch_axes, dp_size
 
 State = Dict[str, Any]
 
@@ -47,18 +54,47 @@ def init(params: Mapping[str, torch.Tensor]) -> State:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def zero1_spec(param_spec: Any, shape: Tuple[int, ...], mesh: Any = None
-               ) -> Any:
-    """The reference shards the state's first free axis over the data axes
-    (ZeRO-1). One card has no data axis: the spec is returned unchanged."""
+def state_shapes(param_shapes: Mapping[str, Tuple[Tuple[int, ...], Any]]
+                 ) -> Dict[str, Any]:
+    """(shape, dtype) of every leaf of :func:`init`'s state for parameters
+    of ``param_shapes`` (name -> (shape, dtype)): f32 moments, an int32
+    0-d step."""
+    f32 = {k: (tuple(shape), torch.float32)
+           for k, (shape, _) in param_shapes.items()}
+    return {"m": f32, "v": dict(f32), "step": ((), torch.int32)}
+
+
+def zero1_spec(param_spec: Spec, shape: Tuple[int, ...], mesh: Any) -> Spec:
+    """Shard the first unsharded, divisible tensor axis over the data axes."""
+    dps = batch_axes(mesh)
+    dp = dp_size(mesh)
+    if dp == 1 or not shape:
+        return param_spec
+    axes = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    # already data-sharded (fsdp weights): nothing more to shard over data
+    for ax in axes:
+        used = ax if isinstance(ax, tuple) else (ax,)
+        if any(a in dps for a in used if a):
+            return param_spec
+    for i, (ax, dim) in enumerate(zip(axes, shape)):
+        if ax is None and dim % dp == 0 and dim > 0:
+            axes[i] = dps if len(dps) > 1 else dps[0]
+            return tuple(axes)
     return param_spec
 
 
-def state_specs(param_specs: Any, param_shapes: Any = None, mesh: Any = None,
-                zero1: bool = True) -> Dict[str, Any]:
-    """The state's placement: on one card, the parameters' own, unsharded
-    (see ``zero1_spec``)."""
-    return {"m": param_specs, "v": param_specs, "step": None}
+def state_specs(param_specs: Mapping[str, Spec],
+                param_shapes: Mapping[str, Tuple[Tuple[int, ...], Any]],
+                mesh: Any, zero1: bool = True) -> Dict[str, Any]:
+    """The state's specs on ``mesh``, keyed as :func:`state_shapes`: with
+    ``zero1`` each moment takes :func:`zero1_spec` of its parameter's
+    spec, else the parameter's own; the step is replicated."""
+    if zero1:
+        sharded = {k: zero1_spec(sp, tuple(param_shapes[k][0]), mesh)
+                   for k, sp in param_specs.items()}
+    else:
+        sharded = dict(param_specs)
+    return {"m": sharded, "v": dict(sharded), "step": ()}
 
 
 def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

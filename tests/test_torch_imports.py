@@ -1,11 +1,11 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax (nor optax, nor ml_dtypes) nor anything of the JAX package
-``repro``, at run time or in their source (the serving tier, the frontend,
-a spawned shard, the campaign, a guided compile and training included),
-and the CDCL worker that the
-solver pool forks imports no torch at all (a child forked after CUDA
-started must never touch CUDA), nor do the numpy guide, the campaign
-engine and the static analysis."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the torch
+examples import neither jax (nor optax, nor ml_dtypes) nor anything of the
+JAX package ``repro``, at run time or in their source (the serving tier,
+the frontend, a spawned shard, the campaign, a guided compile, training
+and the dry run included), and the CDCL worker that the solver pool forks
+imports no torch at all (a child forked after CUDA started must never
+touch CUDA), nor do the numpy guide, the campaign engine and the static
+analysis."""
 import ast
 import os
 import subprocess
@@ -186,12 +186,44 @@ print("LOADED:" + ",".join(bad) + ":" + str(torch.cuda.is_initialized()))
     assert last == "LOADED::False"
 
 
+def test_dry_run_and_examples_load_no_jax_and_no_reference():
+    """The dry run (meta device, the mesh, specs and roofline modules) and
+    the torch examples run with neither jax nor the reference loaded."""
+    last = _run(r"""
+import runpy, sys, tempfile
+import repro_torch
+repro_torch.set_default_device("cpu")
+from repro_torch.launch import dryrun, mesh, roofline, specs
+out = tempfile.mkdtemp() + "/d.jsonl"
+dryrun.main(["--arch", "hymba_1_5b", "--shape", "decode_32k", "--mesh",
+             "both", "--out", out, "--override", '{"n_layers": 1}'])
+assert open(out).read().count('"status": "ok"') == 2
+for name, args in (("quickstart_torch", []), ("map_torch_loop", []),
+                   ("train_lm_torch", ["--steps", "1"])):
+    sys.argv = [name] + args + ["--device", "cpu"]
+    try:
+        runpy.run_path("%s/examples/" + name + ".py", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (name, e.code)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print("LOADED:" + ",".join(bad))
+""" % REPO)
+    assert last == "LOADED:"
+
+
+EXAMPLES = ("quickstart_torch.py", "map_torch_loop.py",
+            "portfolio_mapper_torch.py", "train_lm_torch.py")
+
+
 def _sources():
     for root, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    for f in EXAMPLES:
+        yield os.path.join(REPO, "examples", f)
 
 
 def _forbidden(name: str) -> bool:

@@ -127,7 +127,7 @@ def test_flash_wrapper_rejects(case):
             "dtype": (q.half(), k.half(), k.half()),
             "mixed_dtype": (q, k.to(torch.bfloat16), k),
             "group": (q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16)),
-            "device": (q.to("meta"), k.to("meta"), k.to("meta")),
+            "device": (q, k.to("meta"), k.to("meta")),
             "rank": (q[0], k[0], k[0])}[case]
     with pytest.raises(ValueError):
         flash_attention(*args)
