@@ -88,7 +88,22 @@ train step at 4 x 4096, each dry-run on meta and then run on the card
 real step on cuda, the argument bytes equal the real tensors'; printed:
 the predicted peak against ``max_memory_allocated``, the step's time
 against the roofline, model FLOPs against the bf16 peak), and the cost of
-flash's ``torch.library`` operator against a direct launch. Last,
+flash's ``torch.library`` operator against a direct launch.
+
+The partitioned dry run (``dryrun_partitioned_phase``): the sweep's pod
+cells (and mamba2_370m decode_32k on 2x16x16) carry the partitioned
+L=1/L=2 probes, rank 0's local program on a DTensor mesh over torch's
+fake process group (gates: every non-MoE ``ok`` record has a numeric
+collective term and wire bytes and per-device counts marked
+``partitioned``; the MoE cells keep the even split and say why; printed
+per cell: GiB per device, the three roofline terms, wire bytes by kind).
+Then one rank's shard for real: hymba_1_5b's prefill of 4 x 2048 tokens
+with flash on a (data=1, model=2) mesh over a fake world of 2 ranks, rank
+0's local program run on cuda:0 beside its meta trace (gates: FLOPs meta
+= cuda, flash's at the local 15 q / 3 KV heads; argument bytes = the
+local shards'; collective count meta = cuda; predicted peak within 5% of
+``max_memory_allocated``; 32 flash launches on the tensor cores; flash
+held to its plain version at the local shape). Last,
 ``examples_phase`` runs the four torch examples on cuda (gates: exit 0,
 the JAX examples' IIs, finite losses).
 
@@ -175,7 +190,8 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "bound_no_clen", "phase_ms", "service_path_launches",
                  "campaign_path_launches", "moe_path_launches",
                  "moe_shape", "train_path_launches",
-                 "dryrun_path_launches")
+                 "dryrun_path_launches", "partitioned_path_launches",
+                 "partitioned_shape")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 # the dry run: the sweep's meshes (multi_pod, and None for every arch x
 # shape or the (arch, shape) cells to run). Every cell on both meshes took
@@ -189,10 +205,20 @@ BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 DRY_SWEEP = ((False, None),
              (True, (("mamba2_370m", "decode_32k"),
                      ("llama4_maverick_400b_a17b", "train_4k"))))
+# the cells run with the partitioned L=1/L=2 probes: every pod cell, and
+# of the multi-pod ones the reference's own slow cell
+DRY_PROBED_MULTIPOD = (("mamba2_370m", "decode_32k"),)
 DRY_WORKERS = 8
 DRY_ARCH = "hymba_1_5b"
 DRY_CELLS = (("prefill", 2048, 4, 3), ("decode", 2048, 4, 5),
              ("train", 4096, 4, 1))
+# one rank's shard for real: hymba_1_5b's prefill of 4 x 2048 tokens with
+# flash, on a (data=1, model=tp) mesh over a fake world of tp ranks, tp the
+# first of these the attention plan takes; the predicted peak within
+# PART_PEAK_TOL of max_memory_allocated
+PART_CELL = ("prefill", 2048, 4, 3)
+PART_TP = (2, 4)
+PART_PEAK_TOL = 0.05
 # the JAX examples' IIs on the CPU (examples/quickstart.py and
 # examples/map_jax_loop.py at 4x4); tests/test_torch_examples.py holds the
 # torch examples to them
@@ -2360,10 +2386,12 @@ def train_phase(torch, smi):
 # ------------------------------------------------------------- dry run
 def _dry_cell(arch, shape, multi_pod):
     """One sweep cell, in a worker process: as the dry run's CLI runs it,
-    with the L=1/L=2 probes on the pod mesh."""
+    with the partitioned L=1/L=2 probes on the pod mesh and on the
+    multi-pod cells of ``DRY_PROBED_MULTIPOD``."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
-    run = dryrun.run_cell if multi_pod else dryrun.run_cell_with_probes
+    probed = not multi_pod or (arch, shape) in DRY_PROBED_MULTIPOD
+    run = dryrun.run_cell_with_probes if probed else dryrun.run_cell
     rec = run(arch, shape, multi_pod)
     rec["wall_s"] = time.perf_counter() - t0
     return rec
@@ -2375,7 +2403,8 @@ def dryrun_sweep(torch, smi):
     is host work; the card is not touched). Gates: every applicable cell
     ``ok``, the skips exactly ``shape_applicable``'s, every cell's
     ``argument_bytes`` equal to the value from the specs. The records go
-    to ``build/chip_smoke_dryrun/sweep.jsonl``."""
+    to ``build/chip_smoke_dryrun/sweep.jsonl``. Returns (cells, records).
+    """
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.configs import ARCHS, get_config
@@ -2432,8 +2461,10 @@ def dryrun_sweep(torch, smi):
          columns=["cell", "GiB_per_device", "fits_card", "flops_per_device",
                   "bytes_per_device", "bottleneck", "roofline_step_s",
                   "trace_s", "wall_s"], rows=rows,
-         per_device="argument bytes exact; cost and temp an even split of "
-                    "the global trace")
+         per_device="argument bytes exact; cost and temp partitioned "
+                    "(rank 0's local program, probes) where the record says "
+                    "so, else an even split of the global trace")
+    return cells, recs
 
 
 def _dry_real_args(torch, lm, shp, gen):
@@ -2629,14 +2660,227 @@ def dryrun_real_cells(torch, smi):
 def dryrun_phase(torch, smi):
     """The dry run: the meta-device sweep over every cell, then three real
     hymba cells held against their dry runs. Returns the kernels' launch
-    counts of the real cells."""
+    counts of the real cells and the sweep's (cells, records)."""
     t0 = time.perf_counter()
-    dryrun_sweep(torch, smi)
+    sweep = dryrun_sweep(torch, smi)
     sweep_s = time.perf_counter() - t0
     launches = dryrun_real_cells(torch, smi)
     emit("dryrun_phase", sweep_s=sweep_s,
          seconds=time.perf_counter() - t0, launches=launches)
-    return launches
+    return launches, sweep
+
+
+def partitioned_sweep_gates(smi, cells, recs):
+    """The sweep's partitioned records: every ``ok`` cell probed on its
+    mesh (the pod mesh, ``DRY_PROBED_MULTIPOD``) has a numeric
+    ``collective_s`` and ``wire_bytes`` and per-device cost and temp
+    marked ``"partitioned"``, except the MoE cells, which keep the even
+    split and say why (``dryrun.NO_MOE_STRATEGY``). Prints each probed
+    cell's GiB per device, roofline terms, wire bytes and kinds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    rows, bad, moe = [], [], []
+    for (arch, shape, mp), rec in zip(cells, recs):
+        if rec.get("status") != "ok":
+            continue
+        if mp and (arch, shape) not in DRY_PROBED_MULTIPOD:
+            continue
+        key = f"{arch}/{shape}/{rec['mesh']}"
+        col, rf = rec["collectives"], rec["roofline"]
+        if get_config(arch).n_experts:
+            if col != {"wire_bytes": None,
+                       "reason": dryrun.NO_MOE_STRATEGY}:
+                bad.append((key, "MoE record", col))
+            moe.append(key)
+            continue
+        if not (isinstance(col.get("wire_bytes"), float)
+                and isinstance(rf.get("collective_s"), float)
+                and rec["cost"]["per_device"] == "partitioned"
+                and rec["memory"]["per_device"]["temp_bytes"]
+                == "partitioned"):
+            bad.append((key, col.get("wire_bytes"), rf.get("collective_s"),
+                        rec["cost"]["per_device"]))
+            continue
+        rows.append([key, rec["memory"]["total_bytes"] / 2 ** 30,
+                     rf["compute_s"], rf["memory_s"], rf["collective_s"],
+                     rf["bottleneck"], col["wire_bytes"], col["count"],
+                     col["by_kind"], rec["useful_flop_ratio"]])
+    if bad:
+        raise AssertionError(f"partitioned sweep: {bad[:4]}")
+    emit("dryrun_partitioned_sweep", nvidia_smi=smi, probed=len(rows),
+         moe_even_split=moe,
+         columns=["cell", "GiB_per_device", "compute_s", "memory_s",
+                  "collective_s", "bottleneck", "wire_bytes",
+                  "collective_count", "by_kind", "useful_flop_ratio"],
+         rows=rows, link_bw=roofline.LINK_BW,
+         note="per device, rank 0's local program on a DeviceMesh over "
+              "torch's fake process group (meta device), extrapolated from "
+              "the L=1/L=2 probes; collective_s at NVLink 4's 450 GB/s, a "
+              "lower bound across nodes")
+    return len(rows)
+
+
+def partitioned_shard_phase(torch, smi):
+    """One rank's shard for real: hymba_1_5b at its published widths, bf16,
+    flash, seeded weights, ``PART_CELL``'s prefill on a (data=1,
+    model=tp) mesh over a fake world of tp ranks, rank 0's local program
+    on cuda:0. The dry run traces the same partitioned step on meta.
+    Gates: the FLOPs counted on meta equal those counted on cuda, and
+    flash's among them are the local head count's; the argument bytes
+    from the specs equal the local tensors'; the collective count on
+    cuda equals the count on meta; the predicted peak (argument + temp
+    bytes) within ``PART_PEAK_TOL`` of ``max_memory_allocated`` over one
+    run; flash launched once a layer on the tensor cores, and held to its
+    plain version at the local shape. Returns the kernels' launch counts
+    of that one run (counts set to 0 just before it)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     reset_counts)
+    from repro_torch.kernels.flash_attention.ops import flash_flops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.sharding import plan_attention
+    cfg = get_config(DRY_ARCH).replace(attn_impl="flash")
+
+    def plan_ok(tp):
+        try:
+            plan_attention(cfg.n_heads, cfg.n_kv_heads, tp)
+        except ValueError:
+            return False
+        return True
+    tp = next(t for t in PART_TP if plan_ok(t))
+    plan = plan_attention(cfg.n_heads, cfg.n_kv_heads, tp)
+    mesh = make_mesh((1, tp), ("data", "model"))
+    kind, seq, batch, reps = PART_CELL
+    shp = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    meta = dryrun.trace_partitioned(cfg, shp, mesh)
+    meta_s = time.perf_counter() - t0
+    arg_bytes = dryrun.argument_bytes(cfg, shp, mesh)
+    counters = _counters()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with fake_world(tp):
+        lm, fn, fargs, args = dryrun.partitioned_cell(
+            cfg, shp, mesh, device=dev,
+            init=torch.Generator(device=dev).manual_seed(0))
+        params = dict(lm.named_parameters())
+        local_bytes = _tensor_bytes(dryrun.local_shards(
+            [list(params.values()), args]))
+        if local_bytes != arg_bytes:
+            raise AssertionError(f"partitioned {shp.name} tp={tp}: "
+                                 f"argument_bytes {arg_bytes} from the "
+                                 f"specs, {local_bytes} in the local shards")
+        real = dryrun.trace_local(fn, *fargs, known=(params, args),
+                                  device_type="cuda")
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with implicit_replication():
+            out = fn(*fargs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {name: f.launches for name, f in counters.items()}
+        routes = dict(flash_attention.route_launches)
+        out_shape = [list(out.shape), list(out.to_local().shape)]
+        ms = []
+        with implicit_replication():
+            for _ in range(reps):
+                s_ev, e_ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                s_ev.record()
+                fn(*fargs)
+                e_ev.record()
+                torch.cuda.synchronize()
+                ms.append(s_ev.elapsed_time(e_ev))
+        del lm, fn, fargs, args, params, out
+    torch.cuda.empty_cache()
+    q_shape = (batch, plan.h_pad // tp, seq, cfg.head_dim)
+    kv_shape = (batch, plan.kv_virtual // tp, seq, cfg.head_dim)
+    want_flash = cfg.n_layers * flash_flops(q_shape, kv_shape, kv_shape,
+                                            True, cfg.attn_window, 0)
+    got_flash = real["flops_by_op"].get("repro_torch.flash_attention")
+    predicted = arg_bytes + meta["temp_bytes"]
+    bad = []
+    if real["flops"] != meta["flops"]:
+        bad.append(("flops", meta["flops"], real["flops"]))
+    if got_flash != want_flash or meta["flops_by_op"].get(
+            "repro_torch.flash_attention") != want_flash:
+        bad.append(("flash flops at the local heads", want_flash, got_flash))
+    if real["collectives"].count != meta["collectives"].count:
+        bad.append(("collectives", meta["collectives"].count,
+                    real["collectives"].count))
+    if abs(predicted / peak - 1) > PART_PEAK_TOL:
+        bad.append(("peak", predicted, peak))
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.n_layers
+    if launches != want or routes["tensor_core"] != cfg.n_layers:
+        bad.append(("launches", launches, routes))
+    if bad:
+        raise AssertionError(f"partitioned shard tp={tp}: {bad}")
+    # flash at the local shape against its plain version (not counted)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tol = FLASH_TOL[str(torch.bfloat16)]
+    q, k, v = (torch.randn((batch, seq, sh[1], cfg.head_dim), generator=gen,
+                           device=dev).to(torch.bfloat16).transpose(1, 2)
+               for sh in (q_shape, kv_shape, kv_shape))
+    got = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+    ref = attention_ref(q, k, v, causal=True, window=cfg.attn_window)
+    torch.cuda.synchronize()
+    err, ok = _close(got, ref, tol, tol)
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"flash at the local shape {q_shape}: max abs "
+                             f"err {err} beyond atol=rtol={tol}")
+    step_s = statistics.median(ms) / 1e3
+    rf = roofline.terms(meta["flops"], meta["bytes_accessed"],
+                        meta["collectives"].wire_bytes)
+    emit("dryrun_partitioned_shard", nvidia_smi=smi, arch=cfg.name,
+         cell=shp.name, mesh=mesh.name, tp=tp, plan=[plan.h_pad,
+                                                     plan.kv_virtual],
+         attn_impl="flash", meta_trace_s=meta_s,
+         meta_flops=meta["flops"], cuda_flops=real["flops"],
+         flash_flops=got_flash, flash_local_q=list(q_shape),
+         flash_local_kv=list(kv_shape),
+         argument_bytes=arg_bytes, local_argument_bytes=local_bytes,
+         temp_bytes=meta["temp_bytes"], predicted_peak_bytes=predicted,
+         max_memory_allocated_over_base=peak, memory_base=base,
+         peak_predicted_over_measured=predicted / peak,
+         meta_bytes_accessed=meta["bytes_accessed"],
+         cuda_bytes_accessed=real["bytes_accessed"],
+         collectives_meta=meta["collectives"].count,
+         collectives_cuda=real["collectives"].count,
+         wire_bytes=meta["collectives"].wire_bytes,
+         by_kind=meta["collectives"].by_kind, roofline=rf,
+         step_ms=ms, step_s_median=step_s,
+         share_of_roofline_without_collectives=max(
+             rf["compute_s"], rf["memory_s"]) / step_s,
+         launches=launches, routes=routes, output_shapes=out_shape,
+         flash_local_max_abs_err=err,
+         note="rank 0's local program; the fake backend's collectives "
+              "return at once and compute nothing, so the step time "
+              "leaves out the wire and no value is meaningful")
+    return launches, {"shape": f"q {list(q_shape)} k/v {list(kv_shape)} "
+                               f"bf16 causal window {cfg.attn_window}",
+                      "max_abs_err": err}
+
+
+def dryrun_partitioned_phase(torch, smi, sweep):
+    """The partitioned dry run: (a) the sweep's partitioned records and
+    their gates, (b) one rank's shard of hymba_1_5b run on the card beside
+    its meta trace. Returns (b)'s launch counts and flash row."""
+    t0 = time.perf_counter()
+    probed = partitioned_sweep_gates(smi, *sweep)
+    launches, flash = partitioned_shard_phase(torch, smi)
+    emit("dryrun_partitioned", probed_cells=probed,
+         seconds=time.perf_counter() - t0, launches=launches)
+    return launches, flash
 
 
 def examples_phase(smi):
@@ -2763,7 +3007,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = train_phase(torch, smi)
     t0 = time.perf_counter()
-    dry_launches = dryrun_phase(torch, smi)
+    dry_launches, sweep = dryrun_phase(torch, smi)
+    part_launches, part_flash = dryrun_partitioned_phase(torch, smi, sweep)
+    del sweep
     examples_phase(smi)
     emit("dryrun_and_examples", seconds=time.perf_counter() - t0)
     times.update(lm_times)
@@ -2792,8 +3038,10 @@ def main() -> int:
         t = times[name]
         t["train_path_launches"] = train_launches[name]
         t["dryrun_path_launches"] = dry_launches[name]
+        t["partitioned_path_launches"] = part_launches[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
+            t["partitioned_shape"] = part_flash
         if name.startswith("clause_eval"):
             t["note"] = CLAUSE_NOTE
         kernels.append({

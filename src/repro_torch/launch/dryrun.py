@@ -5,6 +5,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi_34b \
         --shape train_4k --mesh pod --out results/dryrun.jsonl
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # every cell
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2_370m \
+        --shape decode_32k --mesh multipod --multipod-probes
 
 Each cell is one JSON record with the reference's keys (memory, cost,
 collectives, roofline, model FLOPs), appended to the JSONL. The dry run
@@ -12,8 +14,11 @@ needs no GPU and touches no device memory on any machine: the LM, its
 optimizer state and the step's inputs are meta tensors (``LM(cfg, "meta",
 tp=...)``), and the step functions are ``launch/steps.py``'s, run eagerly
 on them. Where the reference lowers and compiles for 512 forced host
-devices, the port reads the mesh's shape only
-(``repro_torch.launch.mesh.LogicalMesh``).
+devices, the port reads the mesh's shape (``launch.mesh.LogicalMesh``)
+for the global trace, and runs the step as a sharded program for the
+per-device one: DTensors laid out by the reference's specs on a
+``DeviceMesh`` over torch's fake process group (``launch.mesh.fake_world``
+and ``device_mesh``), one process holding rank 0 of 256 or 512.
 
 What a record holds, and how it differs from the reference's:
 
@@ -35,13 +40,20 @@ What a record holds, and how it differs from the reference's:
   bytes of storages made during the step and alive at once: the live
   bytes above the arguments. ``memory.output_bytes`` is the bytes of the
   step's results made during the step.
-- The port has no SPMD partitioner, so the per-device cost, temp and
-  output bytes are the global counts divided by the mesh size
-  (``"per_device": "even_split"``); on a 1x1 mesh they are exact. The
-  global counts are kept under ``cost_global`` and ``memory_global``.
-- There is no HLO and so no ``parse_collectives``: ``collectives`` is
-  ``{"wire_bytes": None, "reason": ...}`` and the roofline's collective
-  term is None (``roofline.terms``).
+- Per device: :func:`run_cell_with_probes` (the CLI's default on the pod
+  mesh) traces the L=1 and L=2 probes partitioned (:func:`trace_partitioned`:
+  rank 0's local program, counted by dispatch modes that see the local
+  ops under DTensor and the ``_c10d_functional`` collectives it issues,
+  :class:`CollectiveCounter`) and extrapolates them to the full depth, as
+  the reference corrects its compiled probes: cost, temp and output
+  bytes ``"partitioned"``, and ``collectives`` with the reference's keys
+  (``wire_bytes``, ``count``, ``by_kind``, ``top``) feeding the roofline's
+  collective term. :func:`run_cell` alone (and ``--no-probes``) keeps the
+  global counts divided by the mesh size (``"per_device":
+  "even_split"``, exact on 1x1) and no collectives
+  (``NO_COLLECTIVES``); the MoE cells keep it too, until their dispatch
+  has a sharding strategy (``NO_MOE_STRATEGY``). The global counts are
+  kept under ``cost_global`` and ``memory_global``.
 - ``lower_s`` is the seconds to build the meta LM and inputs, ``trace_s``
   the traced step's; nothing is compiled (``compile_s`` is None).
 
@@ -63,7 +75,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
 
 from ..configs import ARCHS, get_config
 from ..models.config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
@@ -71,11 +83,16 @@ from ..models.model import LM, param_shapes, param_specs
 from ..models.sharding import shard_shape, tp_size
 from ..optim import adamw
 from . import roofline, specs as specs_mod, steps
-from .mesh import LogicalMesh, make_production_mesh
+from .mesh import (LogicalMesh, device_mesh, fake_world,
+                   make_production_mesh)
 
-NO_COLLECTIVES = ("the port has no compiled HLO to read collectives from "
-                  "and no SPMD partitioner to insert them; counted in a "
-                  "multi-GPU round")
+NO_COLLECTIVES = ("an even split of the global trace: collectives are "
+                  "counted by the partitioned probes "
+                  "(run_cell_with_probes) only")
+NO_MOE_STRATEGY = ("the MoE dispatch (the router's top-k sort, the capacity "
+                   "scatter and gather, the expert products) has no DTensor "
+                   "sharding strategy in the port yet, so its cells are not "
+                   "traced partitioned: an even split, no collectives")
 
 
 # ------------------------------------------------------------ arguments
@@ -218,6 +235,232 @@ def trace_step(fn, *args, known: Any = ()) -> Dict[str, Any]:
             "seconds": secs}
 
 
+# ---------------------------------------------------- partitioned trace
+# the collectives DTensor issues on each rank's local tensors, by the
+# reference's kind names (a broadcast sends its output once, as a permute)
+_COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute", "broadcast_": "collective-permute",
+}
+
+
+def _collective_kind(func) -> Optional[str]:
+    if func.namespace not in ("_c10d_functional", "_dtensor"):
+        return None
+    return _COLLECTIVES.get(func._schema.name.split("::")[-1])
+
+
+def _group_size(args) -> int:
+    """The group size of a functional collective: from its group (a name
+    or a ``ProcessGroup``), the last argument of every one of them."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    group = args[-1]
+    if isinstance(group, str):
+        group = _resolve_process_group(group)
+    return group.size()
+
+
+def _propagating() -> bool:
+    """Whether DTensor's sharding propagation is running an op on fake
+    tensors (global shapes): a fake mode is on the stack."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _on(device_type: str, args, kwargs) -> bool:
+    """Whether an op touches the program's device: a tensor argument
+    there, or a ``device`` keyword naming it."""
+    dev = kwargs.get("device")
+    if dev is not None and torch.device(dev).type == device_type:
+        return True
+    return any(t.device.type == device_type
+               for t in _tensors([args, list(kwargs.values())]))
+
+
+class _LocalOnly:
+    """A dispatch mode that sees each rank's local program only, on the
+    device ``device_type``: a call on DTensors is passed on to DTensor
+    (``NotImplemented``), whose local ops then reach the mode. Ops that
+    are not the program's run uncounted: those on fake tensors or that
+    DTensor's sharding propagation runs on them, and DTensor's own shard
+    arithmetic on small host tensors (off ``device_type``)."""
+    device_type = "meta"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if types or _propagating() or not _on(self.device_type, args,
+                                              kwargs):
+            return func(*args, **kwargs)
+        return self._local(func, types, args, kwargs)
+
+    def _local(self, func, types, args, kwargs):
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+class _LocalTraffic(_LocalOnly, _Traffic):
+    """:class:`_Traffic` over each rank's local program."""
+
+
+class _LocalFlopMode(_LocalOnly, _FlopCounterMode):
+    pass
+
+
+class _LocalFlops(FlopCounterMode):
+    """``FlopCounterMode`` over each rank's local program on
+    ``device_type``."""
+
+    def __init__(self, device_type: str):
+        super().__init__(display=False)
+        self.device_type = device_type
+
+    def __enter__(self):
+        self.flop_counts.clear()
+        self.mod_tracker.__enter__()
+        self.mode = _LocalFlopMode(self)
+        self.mode.device_type = self.device_type
+        self.mode.__enter__()
+        return self
+
+
+class CollectiveCounter(_LocalOnly, TorchDispatchMode):
+    """The collectives of each rank's local program, as DTensor issues
+    them (``_c10d_functional`` ops, and ``_dtensor.shard_dim_alltoall``):
+    each op's kind, group size (from its group) and output bytes, costed
+    by ``roofline.wire_bytes``. ``stats()`` gives the reference's
+    ``CollectiveStats``, with the six largest ops in ``top``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def _local(self, func, types, args, kwargs):
+        out = func(*args, **kwargs)
+        kind = _collective_kind(func)
+        if kind is None:
+            return out
+        g = _group_size(args)
+        size = _nbytes(_tensors([out]))
+        shape = next(iter(_tensors([out])))
+        label = (f"{kind} g={g} {str(shape.dtype).replace('torch.', '')}"
+                 f"{list(shape.shape)}")
+        self.ops.append((label, kind, roofline.wire_bytes(kind, size, g)))
+        return out
+
+    def stats(self) -> roofline.CollectiveStats:
+        st = roofline.CollectiveStats()
+        for _, kind, wire in self.ops:
+            st.wire_bytes += wire
+            st.by_kind[kind] = st.by_kind.get(kind, 0.0) + wire
+            st.count += 1
+        st.top = sorted(((lab, w) for lab, _, w in self.ops),
+                        key=lambda t: -t[1])[:6]
+        return st
+
+
+def local_shards(xs):
+    """A tree with every DTensor replaced by its local shard."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(xs, DTensor):
+        return xs._local_tensor
+    if isinstance(xs, dict):
+        return {k: local_shards(v) for k, v in xs.items()}
+    if isinstance(xs, (list, tuple)):
+        return [local_shards(v) for v in xs]
+    return xs
+
+
+def trace_local(fn, *args, known: Any = (),
+                device_type: str = "meta") -> Dict[str, Any]:
+    """:func:`trace_step` over each rank's local program of a DTensor
+    step whose local shards live on ``device_type``: flops (and by
+    operator, ``"flops_by_op"``), bytes accessed, temp and output bytes
+    of rank 0's shards, and its collectives (``"collectives"``, a
+    ``CollectiveStats``). Values computed over the fake process group
+    mean nothing; these counts depend on shapes only."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    known_local = local_shards((args, known))
+    fc = _LocalFlops(device_type)
+    tr, cc = _LocalTraffic(known_local), CollectiveCounter()
+    tr.device_type = cc.device_type = device_type
+    t0 = time.perf_counter()
+    with implicit_replication(), fc, tr, cc:
+        out = fn(*args)
+    secs = time.perf_counter() - t0
+    before = {t.untyped_storage()._cdata for t in _tensors([known_local])}
+    outputs = {}
+    for t in _tensors([local_shards(out)]):
+        st = t.untyped_storage()
+        if st._cdata not in before:
+            outputs[st._cdata] = st.nbytes()
+    by_op = {str(op): int(n) for op, n in
+             fc.get_flop_counts().get("Global", {}).items()}
+    return {"flops": int(fc.get_total_flops()), "bytes_accessed": tr.bytes,
+            "temp_bytes": tr.peak, "output_bytes": sum(outputs.values()),
+            "collectives": cc.stats(), "flops_by_op": by_op,
+            "seconds": secs}
+
+
+def _sharded_args(lm: LM, shapes: Any, specs: Any) -> Any:
+    """DTensors of a tree of (shape, dtype) leaves laid out by the matching
+    specs on ``lm``'s mesh, local shards on ``lm``'s device: zeros (the
+    ring positions 2**30, the cache's never-written mark), so integer
+    inputs index in range on a real device."""
+    if isinstance(shapes, dict):
+        return {k: _sharded_args(lm, shapes[k], specs[k]) for k in shapes}
+    shape, dtype = shapes
+    t = lm.sharded_empty(tuple(shape), dtype, specs)
+    t._local_tensor.zero_()
+    return t
+
+
+def partitioned_cell(cfg: ModelConfig, shape: ShapeConfig,
+                     mesh: LogicalMesh, device: Any = "meta",
+                     init: Optional[torch.Generator] = None,
+                     ) -> Tuple[Any, Any, Any, Dict[str, Any]]:
+    """The partitioned step of a cell, ready to run inside
+    ``fake_world(mesh.size)``: ``(lm, fn, fargs, args)``, the LM built on
+    a ``DeviceMesh`` of ``mesh`` with its local shards on ``device`` and
+    the step's arguments as DTensors laid out by the reference's specs.
+    The mesh's device type is cuda for the meta device (DTensor then
+    issues the collectives NCCL would, all-to-all included, where a cpu
+    mesh swaps an all-to-all for an all-gather) and the device's own
+    otherwise. ``init`` (a generator on ``device``) draws the parameters'
+    local shards N(0, 0.02); otherwise they stay uninitialised."""
+    dev = torch.device(device)
+    dm = device_mesh(mesh, "cuda" if dev.type == "meta" else dev.type)
+    lm = LM(cfg, device, mesh=dm)
+    if init is not None:
+        with torch.no_grad():
+            for p in lm.parameters():
+                p._local_tensor.normal_(0.0, 0.02, generator=init)
+    groups = cell_arguments(cfg, shape, mesh)
+    args = {k: _sharded_args(lm, s, sp) for k, (s, sp) in groups.items()
+            if k not in ("params", "t")}
+    if "cache" in args and "pos" in args["cache"]:
+        args["cache"]["pos"]._local_tensor.fill_(2 ** 30)
+    fn, fargs = _step(lm, shape, args)
+    return lm, fn, fargs, args
+
+
+def trace_partitioned(cfg: ModelConfig, shape: ShapeConfig,
+                      mesh: LogicalMesh) -> Dict[str, Any]:
+    """Rank 0's local program of the cell's step on ``mesh``, on the meta
+    device, over a fake world of ``mesh.size`` ranks: per-device flops,
+    bytes accessed, temp and output bytes, and the collectives
+    (:func:`trace_local`)."""
+    with fake_world(mesh.size):
+        lm, fn, fargs, args = partitioned_cell(cfg, shape, mesh)
+        return trace_local(fn, *fargs, known=(dict(lm.named_parameters()),
+                                              args))
+
+
 def _step(lm: LM, shape: ShapeConfig, args: Dict[str, Any]):
     """The step of ``shape.kind`` and its arguments, from meta tensors."""
     if shape.kind == "train":
@@ -299,46 +542,97 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], multi_pod: bool,
     return rec
 
 
+def _extrapolate(v1: Any, v2: Any, L: int) -> Any:
+    """``v1 + (L-1) * (v2 - v1)``, per key for dicts."""
+    if isinstance(v1, dict):
+        return {k: _extrapolate(v1.get(k, 0), v2.get(k, 0), L)
+                for k in {**v1, **v2}}
+    return v1 + (L - 1) * (v2 - v1)
+
+
 def run_cell_with_probes(arch: str, shape: Union[str, ShapeConfig],
                          multi_pod: bool,
                          overrides: Optional[Dict[str, Any]] = None, *,
                          mesh: Optional[LogicalMesh] = None,
                          ) -> Dict[str, Any]:
-    """The full-depth cell plus two shallow probes (L=1, L=2), as the
-    reference runs them: ``cost_corrected = probe(1) + (L-1) * (probe(2) -
-    probe(1))``. The reference needs the correction because XLA counts a
-    scanned layer once; the port's eager trace counts every layer, so
-    here the correction must equal the direct count (to 1e-9 relative):
-    a self-check of the count's linearity in depth. A mismatch raises
-    ``ValueError``."""
+    """The full-depth cell plus shallow probes (L=1, L=2), as the
+    reference runs them: ``v(L) = probe(1) + (L-1) * (probe(2) -
+    probe(1))``.
+
+    - The full-depth trace (:func:`run_cell`) gives the global counts
+      (``cost_global``, ``memory_global``). Unpartitioned probes check
+      them: the port's eager trace counts every layer (XLA counts a
+      scanned layer once, hence the reference's correction), so the
+      extrapolated global FLOPs and bytes must equal the direct count to
+      1e-9 relative, or ``ValueError`` is raised.
+    - The probes that the record keeps run partitioned
+      (:func:`trace_partitioned`, rank 0's local program on ``mesh``), as
+      the reference's compile partitioned ones: ``cost_corrected`` holds
+      the extrapolated per-device ``flops``, ``bytes_accessed`` and
+      ``wire_bytes``, and ``cost``, ``memory``'s temp and output bytes,
+      ``collectives`` (count and ``by_kind`` extrapolated; ``top`` the
+      L=2 probe's) and ``roofline`` take them, marked ``"partitioned"``.
+    - MoE cells keep the even split (``NO_MOE_STRATEGY``)."""
     rec = run_cell(arch, shape, multi_pod, overrides, mesh=mesh)
     if rec.get("status") != "ok":
         return rec
-    cfg, _ = _resolve(arch, shape, overrides)
+    cfg, shp = _resolve(arch, shape, overrides)
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
+    n = mesh.size
     L = cfg.n_layers
     probes = {}
     for depth in (1, 2):
         po = dict(overrides or {})
         po.update(n_layers=depth, scan_layers=False)
         probes[depth] = run_cell(arch, shape, multi_pod, po, mesh=mesh)
-
-    def corrected(get):
-        v1, v2 = get(probes[1]), get(probes[2])
-        return v1 + (L - 1) * (v2 - v1)
-
-    flops = corrected(lambda r: r["cost"]["flops"])
-    bytes_ = corrected(lambda r: r["cost"]["bytes_accessed"])
-    rec["cost_corrected"] = {
-        "flops": flops, "bytes_accessed": bytes_, "wire_bytes": None,
-        "per_layer_flops": (probes[2]["cost"]["flops"]
-                            - probes[1]["cost"]["flops"]),
-    }
-    for key, got in (("flops", flops), ("bytes_accessed", bytes_)):
-        want = rec["cost"][key]
+    for key in ("flops", "bytes_accessed"):
+        got = _extrapolate(probes[1]["cost_global"][key],
+                           probes[2]["cost_global"][key], L)
+        want = rec["cost_global"][key]
         if abs(got - want) > 1e-9 * max(abs(want), 1.0):
             raise ValueError(f"{rec['arch']}/{rec['shape']}/{rec['mesh']}: "
                              f"probe-corrected {key} {got} differs from the "
                              f"direct count {want}")
+    if cfg.n_experts:
+        rec["cost_corrected"] = {
+            "flops": rec["cost"]["flops"],
+            "bytes_accessed": rec["cost"]["bytes_accessed"],
+            "wire_bytes": None,
+            "per_layer_flops": (probes[2]["cost_global"]["flops"]
+                                - probes[1]["cost_global"]["flops"]) / n}
+        rec["collectives"] = {"wire_bytes": None, "reason": NO_MOE_STRATEGY}
+        return rec
+    part = {d: trace_partitioned(cfg.replace(n_layers=d, scan_layers=False),
+                                 shp, mesh) for d in (1, 2)}
+    ext = {k: _extrapolate(part[1][k], part[2][k], L)
+           for k in ("flops", "bytes_accessed", "temp_bytes",
+                     "output_bytes")}
+    st = {d: part[d]["collectives"] for d in (1, 2)}
+    wire = _extrapolate(st[1].wire_bytes, st[2].wire_bytes, L)
+    rec["trace_s"] += sum(part[d]["seconds"] for d in (1, 2))
+    rec["cost"] = {"flops": ext["flops"],
+                   "bytes_accessed": ext["bytes_accessed"],
+                   "per_device": "partitioned"}
+    mem = rec["memory"]
+    mem["temp_bytes"] = ext["temp_bytes"]
+    mem["output_bytes"] = ext["output_bytes"]
+    mem["total_bytes"] = mem["argument_bytes"] + mem["temp_bytes"]
+    mem["per_device"] = {"argument_bytes": "exact",
+                         "output_bytes": "partitioned",
+                         "temp_bytes": "partitioned"}
+    rec["collectives"] = {
+        "wire_bytes": wire,
+        "count": _extrapolate(st[1].count, st[2].count, L),
+        "by_kind": _extrapolate(st[1].by_kind, st[2].by_kind, L),
+        "top": st[2].top[:6]}
+    rec["cost_corrected"] = {
+        "flops": ext["flops"], "bytes_accessed": ext["bytes_accessed"],
+        "wire_bytes": wire,
+        "per_layer_flops": part[2]["flops"] - part[1]["flops"]}
+    rec["roofline"] = roofline.terms(ext["flops"], ext["bytes_accessed"],
+                                     wire)
+    if ext["flops"]:
+        rec["useful_flop_ratio"] = rec["model_flops_per_chip"] / ext["flops"]
     return rec
 
 
@@ -353,7 +647,11 @@ def main(argv=None) -> None:
     ap.add_argument("--override", default=None,
                     help="JSON dict of ModelConfig overrides (perf exps)")
     ap.add_argument("--no-probes", action="store_true",
-                    help="skip the L=1/L=2 probes (a self-check here)")
+                    help="skip the L=1/L=2 probes (even split, no "
+                         "collectives)")
+    ap.add_argument("--multipod-probes", action="store_true",
+                    help="probe the 2x16x16 cells too (the reference "
+                         "probes the pod mesh only)")
     args = ap.parse_args(argv)
 
     archs = ARCHS if (args.all or args.arch is None) else [args.arch]
@@ -371,8 +669,8 @@ def main(argv=None) -> None:
                 key = f"{arch}/{shape}/{mesh.name}"
                 t0 = time.perf_counter()
                 try:
-                    # probes only on the single-pod mesh, as the reference
-                    if mp or args.no_probes:
+                    # probes on the single-pod mesh, as the reference
+                    if args.no_probes or (mp and not args.multipod_probes):
                         rec = run_cell(arch, shape, mp, overrides)
                     else:
                         rec = run_cell_with_probes(arch, shape, mp,

@@ -12,18 +12,26 @@ data sheet, SXM part, without sparsity):
     HBM_BW     = 3.35e12    bytes/s of HBM3
     LINK_BW    = 450e9      bytes/s of NVLink 4, one direction
 
-No TPU number remains here. The reference takes its FLOPs and bytes from
-XLA's ``cost_analysis`` of the partitioned HLO and its wire bytes from
-parsing that HLO's collectives (``parse_collectives``). The port has no
-HLO: the dry run counts FLOPs and bytes from the aten ops of an eager
-trace, and there is no ``parse_collectives``. Without wire bytes
-``terms`` gives ``collective_s: None`` and takes the bottleneck over the
-terms it has. ``param_counts`` and ``model_flops`` are the reference's,
-unchanged.
+No TPU number remains here. ``LINK_BW`` is the NVLink rate inside one
+eight-GPU node; a 16x16 H100 mesh spans 32 such nodes, and its collectives
+that cross nodes run on the slower network between them, so the
+collective term is a lower bound.
+
+The reference takes its FLOPs and bytes from XLA's ``cost_analysis`` of
+the partitioned HLO and its wire bytes from parsing that HLO's
+collectives (``parse_collectives``). The port has no HLO: the dry run
+counts FLOPs and bytes from the aten ops of an eager trace, and the
+partitioned dry run counts the collectives that DTensor issues on a mesh
+over torch's fake process group (``repro_torch.launch.dryrun``), each
+costed by :func:`wire_bytes` with the reference's ring formulas. Without
+wire bytes (a record that has no partitioned trace) ``terms`` gives
+``collective_s: None`` and takes the bottleneck over the terms it has.
+``param_counts`` and ``model_flops`` are the reference's, unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 from ..models.config import ModelConfig
 
@@ -31,12 +39,44 @@ PEAK_FLOPS = 989.4e12
 HBM_BW = 3.35e12
 LINK_BW = 450e9
 
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+@dataclass
+class CollectiveStats:
+    """The reference's per-device collective summary: wire bytes in all,
+    by kind, the count, and the largest ops as (label, wire bytes)."""
+    wire_bytes: float = 0.0
+    by_kind: Dict[str, float] = field(default_factory=dict)
+    count: int = 0
+    top: List[Tuple[str, float]] = field(default_factory=list)
+
+
+def wire_bytes(kind: str, out_bytes: float, group_size: int) -> float:
+    """Bytes one device sends for a collective of ``kind`` whose output is
+    ``out_bytes`` on each device, over a group of ``group_size``, by the
+    reference's ring formulas (``parse_collectives``): all-reduce
+    2(g-1)/g of the output, all-gather (g-1)/g of the gathered output,
+    reduce-scatter (g-1) times the output shard, all-to-all (g-1)/g,
+    collective-permute the output's size."""
+    g = group_size
+    if kind == "all-reduce":
+        return 2.0 * (g - 1) / max(g, 1) * out_bytes
+    if kind in ("all-gather", "all-to-all"):
+        return (g - 1) / max(g, 1) * out_bytes
+    if kind == "reduce-scatter":
+        return float(g - 1) * out_bytes
+    if kind == "collective-permute":
+        return float(out_bytes)
+    raise ValueError(f"unknown collective kind {kind!r}; known: {KINDS}")
+
 
 def terms(flops: float, bytes_: float, wire_bytes: Optional[float],
           ) -> Dict[str, object]:
     """Seconds of each term, the term that bounds the step and the step's
-    bound in seconds. ``wire_bytes=None`` (the port counts no
-    collectives) leaves ``collective_s`` None and out of the bound."""
+    bound in seconds. ``wire_bytes=None`` (a record without a partitioned
+    trace) leaves ``collective_s`` None and out of the bound."""
     t: Dict[str, object] = {
         "compute_s": flops / PEAK_FLOPS,
         "memory_s": bytes_ / HBM_BW,

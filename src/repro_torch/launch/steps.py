@@ -7,7 +7,12 @@ reference's ``grad_barrier`` (keeping the data-parallel gradient
 all-reduce in bf16), ``zero1`` (reduce-scattering gradients onto the
 data-sharded optimizer state) and ``seq_shard`` (sequence-parallel
 activations) shape collectives between devices; on one card there are
-none, so these config fields are accepted and change nothing.
+none, so these config fields are accepted and change nothing. On the
+partitioned LM (``LM(cfg, device, mesh=...)``) the train step constrains
+the gradients to the optimizer state's layout, as the reference does under
+``zero1``: the data-parallel sum is then a reduce-scatter onto the
+data-sharded moments, and without ``zero1`` an all-reduce onto the
+parameters' layout.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..models.model import LM
+from ..models.model import LM, param_shapes, param_specs
+from ..models.sharding import placements
 from ..optim import adamw
 
 Batch = Dict[str, torch.Tensor]
@@ -74,9 +80,19 @@ def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
     sync)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     params = dict(lm.named_parameters())
+    grad_layout = None
+    if lm.mesh is not None:
+        m = lm.spec_mesh
+        specs = adamw.state_specs(param_specs(lm.cfg, m),
+                                  param_shapes(lm.cfg, lm.tp), m,
+                                  zero1=lm.cfg.zero1)["m"]
+        grad_layout = {k: placements(sp, lm.mesh) for k, sp in specs.items()}
 
     def train_step(opt_state, batch):
         loss, metrics, grads = value_and_grad(lm, batch)
+        if grad_layout is not None:
+            grads = {k: g.redistribute(lm.mesh, grad_layout[k])
+                     for k, g in grads.items()}
         opt_state, opt_metrics = adamw.update(opt_cfg, grads, opt_state,
                                               params)
         return opt_state, dict(metrics, loss=loss, **opt_metrics)

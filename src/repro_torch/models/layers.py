@@ -24,6 +24,7 @@ promotes implicitly. The expert products are plain ``torch`` matmuls
 from __future__ import annotations
 
 import math
+import sys
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -54,6 +55,10 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, r = ctx.saved_tensors
+        if is_sharded(dy):
+            # a partial cotangent (a row-parallel product's) is summed in
+            # the residual dtype, at the boundary, not in the f32 inside
+            dy = dy.redistribute(dy.device_mesh, x.placements)
         xf = x.float()
         dyf = dy.float()
         xhat = xf * r
@@ -201,9 +206,230 @@ def attention_layer(cfg: ModelConfig, plan: AttnPlan, p: Params,
                               window=window).transpose(1, 2)
     else:
         fn = blockwise_attention if impl == "blockwise" else naive_attention
-        out = fn(q, kk, vv, positions, kpos, window=window)
-    out = out.reshape(b, s, plan.h_pad * hd) @ p["wo"]
+        if is_sharded(q):
+            # each rank's batch rows and heads (a local map): no DTensor
+            # rule is needed for the einsums over blocks
+            heads = _follow(q, 0, 2, 2)
+            rows = _follow(q, 0, None, 2)
+            out = _local_map(lambda *a: fn(*a, window=window), heads,
+                             (heads, heads, heads, rows, rows),
+                             (q, kk, vv, positions, kpos))
+        else:
+            out = fn(q, kk, vv, positions, kpos, window=window)
+    if s == 1 and is_sharded(out):
+        # a decode step as the ops that torch's matmul folds a plain tensor
+        # into (view, mm, _unsafe_view): DTensor's stride for the size-1
+        # sequence axis defeats the fold
+        out = torch.ops.aten._unsafe_view(
+            out.reshape(b, plan.h_pad * hd) @ p["wo"], (b, s, cfg.d_model))
+    else:
+        out = out.reshape(b, s, plan.h_pad * hd) @ p["wo"]
     return out, {"k": k, "v": v}
+
+
+_SHARDINGS: list = []
+
+
+def is_sharded(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor (the partitioned LM's; see
+    ``repro_torch.models.model``). No DTensor exists before its module is
+    imported, so a plain run never imports it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _follow(x: torch.Tensor, batch: Optional[int], feat: Optional[int],
+            x_feat: int) -> list:
+    """Placements, per mesh dimension, of a tensor whose dimension
+    ``batch`` is split as ``x``'s dimension 0 is and whose dimension
+    ``feat`` as ``x``'s dimension ``x_feat`` (the SSM's channels or
+    heads); every other mesh dimension replicates it. The local maps
+    below run on these layouts."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in x.placements:
+        if batch is not None and p.is_shard(0):
+            out.append(Shard(batch))
+        elif feat is not None and p.is_shard(x_feat):
+            out.append(Shard(feat))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _summed(x: torch.Tensor, pl: list) -> list:
+    """The gradient layout of an input laid out as ``pl`` that every rank
+    applies to its own batch rows of ``x`` (a weight): a partial sum over
+    each mesh dimension that splits ``x``'s batch, ``pl`` elsewhere."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if px.is_shard(0) else p
+            for px, p in zip(x.placements, pl)]
+
+
+def _local_map(fn, outs, ins, args, grads=None):
+    """``fn(*args)`` on each rank's local shards (``local_map``): the
+    inputs redistributed to ``ins`` first, the outputs laid out as
+    ``outs`` (a list of placements for one output, a tuple of such lists
+    for several), the inputs' gradients as ``grads`` (default: as
+    ``ins``)."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=outs, in_placements=ins,
+                     in_grad_placements=grads or ins,
+                     redistribute_inputs=True)(*args)
+
+
+class _PartialGrad(torch.autograd.Function):
+    """The identity, whose gradient is laid out as a partial sum over the
+    mesh axes where it is replicated: a replicated product's share of an
+    input's gradient then adds to the sharded products' partial shares
+    without an all-reduce, as XLA adds them (DTensor in torch 2.11
+    all-reduces the partial sum instead). The relayout is free: the first
+    rank of each such axis keeps the value, the others hold zeros."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh = g.device_mesh
+        axes = [i for i, p in enumerate(g.placements)
+                if p == Replicate() and mesh.size(i) > 1]
+        if not axes:
+            return g
+        local = g.to_local()
+        if any(mesh.get_local_rank(i) for i in axes):
+            local = torch.zeros_like(local)
+        want = [Partial() if i in axes else p
+                for i, p in enumerate(g.placements)]
+        return DTensor.from_local(local, mesh, want, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+
+def _partial_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its gradient a partial sum (:class:`_PartialGrad`) on
+    DTensors; ``x`` itself otherwise."""
+    return _PartialGrad.apply(x) if is_sharded(x) else x
+
+
+def hybrid_mix(a: torch.Tensor, s: torch.Tensor, mix: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The hybrid block's branches combined, ``(a mix[0] + s mix[1]) / 2``
+    in f32 (as the reference: a bf16 tensor times an f32 array promotes
+    there; torch would keep bf16 for a 0-d operand), cast to ``dtype``.
+    On DTensors the branches are row-parallel partial sums: each rank
+    combines its partial values (a local map), so the gradient of
+    ``mix`` is a partial sum too, where DTensor would all-reduce both f32
+    branches first."""
+    if not is_sharded(a):
+        mix = mix.float()
+        return (a.float() * mix[0] + s.float() * mix[1]).to(dtype) * 0.5
+    from torch.distributed.tensor import Partial, Replicate
+    part = list(a.placements)
+    whole = [Replicate() if p.is_partial() else p for p in part]
+    summed = [Partial() if p.is_partial() or p.is_shard(0) else Replicate()
+              for p in part]
+    return _local_map(lambda a_, s_, m_: hybrid_mix(a_, s_, m_, dtype),
+                      part, (part, part, [Replicate()] * len(part)),
+                      (a, s, mix), (whole, whole, summed))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """``table[tokens]``; on DTensors (the table's features split over
+    "model", the tokens' batch over the data axes) each rank's lookup of
+    its rows in its columns (a local map)."""
+    if not is_sharded(table):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Shard(0) if pt.is_shard(0) else Shard(2) if pw.is_shard(1)
+           else Replicate() for pw, pt in zip(table.placements,
+                                              tokens.placements)]
+    grads = (_summed(tokens, list(table.placements)),
+             list(tokens.placements))
+    return _local_map(embed_lookup, out,
+                      (list(table.placements), list(tokens.placements)),
+                      (table, tokens), grads)
+
+
+def _dt_softplus(dt: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The SSM's step sizes, softplus(dt + bias) in f32; on DTensors each
+    rank's batch rows (a local map, so the backward stays one
+    ``softplus_backward``, for which DTensor has no rule)."""
+    if not is_sharded(dt):
+        return F.softplus(dt.float() + bias)
+    rows = _follow(dt, 0, None, 2)
+    vec = _follow(dt, None, 0, 2)
+    return _local_map(_dt_softplus, rows, (rows, vec), (dt, bias),
+                      (rows, _summed(dt, vec)))
+
+
+def register_shardings() -> None:
+    """DTensor sharding rules for the ops of this module that DTensor has
+    none for, registered once a process (the partitioned LM calls it):
+    ``torch.ops.repro_torch.flash_attention`` runs on each rank's local
+    heads and batch rows, so q, k, v and the output may be sharded alike
+    on the batch axis (0) or the head axis (1) of its [B, H, S, D] layout,
+    or replicated; the sequence and head-dim axes are never sharded. A
+    head shard keeps whole GQA groups: the attention plan makes the KV
+    head count a multiple of the TP degree and q heads are laid out group
+    by group."""
+    if _SHARDINGS:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _flash(q, k, v, causal, window, q_offset):
+        rest = [None, None, None]
+        return [([p], [p, p, p] + rest)
+                for p in (Replicate(), Shard(0), Shard(1))]
+
+    _SHARDINGS.append(_flash)
+
+
+# ------------------------------------------------------------------- loss
+def ce_terms(lg: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp of ``lg`` [B,T,V] over the vocabulary, the logit of each
+    label [B,T]). A label of -1 takes the logit at 0 (``gather`` raises on
+    it where JAX's ``take_along_axis`` does not): the loss's mask zeroes
+    its term. On DTensor logits whose vocabulary is split over a mesh
+    axis both are vocabulary-parallel, as XLA partitions them: the max
+    and the sum of exponentials all-reduced over that axis ([B,T] each),
+    and the label's logit gathered by the rank that holds it (a local
+    map, summed over the axis); DTensor alone would gather the logits."""
+    split = [i for i, p in enumerate(lg.placements)
+             if p.is_shard(2) and lg.device_mesh.size(i) > 1] \
+        if is_sharded(lg) else []
+    if not split:
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels.clamp(min=0).long()[..., None]
+                            )[..., 0]
+        return lse, gold
+    from torch.distributed.tensor import Partial
+    mesh = lg.device_mesh
+    rows = _follow(lg, 0, None, 2)
+    m = lg.detach().amax(dim=-1, keepdim=True).redistribute(mesh, rows)
+    lse = m[..., 0] + torch.log(
+        torch.exp(lg - m).sum(dim=-1).redistribute(mesh, rows))
+    vloc = lg.to_local().shape[-1]
+    offset = sum(mesh.get_local_rank(i) * math.prod(
+        mesh.size(j) for j in split if j > i) for i in split) * vloc
+
+    def gold_local(lg_l, labels_l):
+        idx = labels_l.long() - offset
+        inside = (idx >= 0) & (idx < vloc)
+        got = torch.gather(lg_l, -1, idx.clamp(0, vloc - 1)[..., None]
+                           )[..., 0]
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    out = [Partial() if i in split else p for i, p in enumerate(rows)]
+    gold = _local_map(gold_local, out,
+                      (list(lg.placements), list(labels.placements)),
+                      (lg, labels))
+    return lse, gold.redistribute(mesh, rows)
 
 
 # ------------------------------------------------------------------- MLP
@@ -380,8 +606,25 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, return_state: bool = False):
 
     The reference's three multi-operand einsums are written as explicit
     pairwise products, so the arithmetic does not depend on the einsum
-    path torch picks and no intermediate holds l*l*h*p values.
+    path torch picks and no intermediate holds l*l*h*p values. On DTensors
+    it runs on each rank's batch rows and heads (a local map).
     """
+    if is_sharded(x):
+        xp = _follow(x, 0, 2, 2)
+        hd = _follow(x, 0, 2, 2)
+        vec = _follow(x, None, 0, 2)
+        bc = _follow(x, 0, None, 2)
+        st = _follow(x, 0, 1, 2)
+        from torch.distributed.tensor import Partial
+        sv = _summed(x, vec)
+        # each rank's heads contribute a partial sum to B's and C's grads
+        bcg = [Partial() if px.is_shard(2) else p
+               for px, p in zip(x.placements, bc)]
+        return _local_map(
+            lambda *a: ssd_chunked(*a, chunk, return_state),
+            (xp, st) if return_state else xp,
+            (xp, hd, vec, bc, bc, vec), (x, dt, A_log, B, C, D),
+            (xp, hd, sv, bcg, bcg, sv))
     b, s, h, hp = x.shape
     n = B.shape[-1]
     if s % chunk:
@@ -449,7 +692,15 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, return_state: bool = False):
 
 def ssd_decode_step(state, x, dt, A_log, B, C, D):
     """Single-token SSD recurrence. state: [b,h,p,n]; x: [b,h,p];
-    dt: [b,h]; B,C: [b,n]. Returns (y [b,h,p], new state)."""
+    dt: [b,h]; B,C: [b,n]. Returns (y [b,h,p], new state). On DTensors
+    it runs on each rank's batch rows and heads (a local map)."""
+    if is_sharded(x):
+        xp = _follow(x, 0, 1, 1)
+        vec = _follow(x, None, 0, 1)
+        bc = _follow(x, 0, None, 1)
+        return _local_map(ssd_decode_step, (xp, xp),
+                          (xp, xp, xp, vec, bc, bc, vec),
+                          (state, x, dt, A_log, B, C, D))
     A = -torch.exp(A_log.float())
     dtf = dt.float()
     dA = torch.exp(dtf * A)                                  # [b,h]
@@ -464,7 +715,14 @@ def ssd_decode_step(state, x, dt, A_log, B, C, D):
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  prev: Optional[torch.Tensor]):
     """Depthwise causal conv. x: [B,S,F], w: [K,F], prev: [B,K-1,F] or None.
-    A sum of K shifted slices. Returns (silu(conv(x)), new_prev [B,K-1,F])."""
+    A sum of K shifted slices. Returns (silu(conv(x)), new_prev [B,K-1,F]).
+    On DTensors it runs on each rank's rows and channels (a local map)."""
+    if is_sharded(x):
+        xp = _follow(x, 0, 2, 2)
+        wp = _follow(x, None, 1, 2)
+        ins = (xp, wp, None if prev is None else xp)
+        return _local_map(_causal_conv, (xp, xp), ins, (x, w, prev),
+                          (xp, _summed(x, wp), ins[2]))
     b, s, f = x.shape
     k = w.shape[0]
     if prev is None:
@@ -484,14 +742,15 @@ def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     di = h * hp
     z = x @ p["w_z"]
     xin = x @ p["w_x"]
-    Bc = x @ p["w_B"]
-    Cc = x @ p["w_C"]
-    dt = x @ p["w_dt"]
+    xr = _partial_grad(x)       # the replicated weights' products
+    Bc = xr @ p["w_B"]
+    Cc = xr @ p["w_C"]
+    dt = xr @ p["w_dt"]
     cv = cache or {}
     xin, conv_x = _causal_conv(xin, p["conv_x"], cv.get("conv_x"))
     Bc, conv_B = _causal_conv(Bc, p["conv_B"], cv.get("conv_B"))
     Cc, conv_C = _causal_conv(Cc, p["conv_C"], cv.get("conv_C"))
-    dt = F.softplus(dt.float() + p["dt_bias"])
+    dt = _dt_softplus(dt, p["dt_bias"])
     xh = xin.reshape(b, s, h, hp)
     if cache is None:
         if want_cache:  # prefill: also hand the final state to decode

@@ -16,6 +16,19 @@ lives on the one card. The dry run (``repro_torch.launch.dryrun``) builds
 the LM on the meta device at a mesh's TP degree (``LM(cfg, "meta",
 tp=16)``: the reference's padded head plan and vocabulary), and reads
 each leaf's layout from :func:`param_specs` and :func:`cache_specs`.
+
+The partitioned LM, ``LM(cfg, device, mesh=dm)`` with a ``DeviceMesh``
+``dm`` of axes ("data", "model") or ("pod", "data", "model")
+(``repro_torch.launch.mesh.device_mesh``), holds every parameter as a
+DTensor laid out by :func:`param_specs` (``sharding.placements``), whose
+local shard lives on ``device``: meta for the partitioned dry run, cuda
+for one rank's shard on the card. Its inputs are DTensors laid out by the
+reference's input specs, and the reference's sharding constraints become
+``redistribute`` calls at the reference's points: the residual stream at
+the forward's and the prefill's entry and at each block's end
+(``_act_spec``), the head as (None, "vocab") before the logits. Plain
+tensors the methods make (positions, masks, scalars) count as replicated
+(``implicit_replication``). Without a mesh none of this runs.
 The layers run in a Python loop over the stacked layer axis (the
 reference scans), and ``decode_step`` updates the
 ring-buffer cache in place (the reference returns a new one). With
@@ -45,8 +58,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import layers
 from .config import ModelConfig
-from .sharding import (AttnPlan, Spec, pad_to, plan_attention, spec,
-                       tp_size)
+from .sharding import (AttnPlan, Spec, pad_to, placements, plan_attention,
+                       shard_shape, spec, tp_size)
 
 Params = Dict[str, Any]
 _F32_LEAVES = ("dt_bias", "A_log", "D")   # f32 whatever the model dtype
@@ -54,6 +67,48 @@ _F32_LEAVES = ("dt_bias", "A_log", "D")   # f32 whatever the model dtype
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class _ToResidual(torch.autograd.Function):
+    """``a`` redistributed to the residual's placements; the gradient
+    redistributed to ``back`` (replicated over "model"), not to ``a``'s
+    partial layout: no product's backward then flattens a gradient whose
+    sequence is split, which DTensor refuses in some versions."""
+
+    @staticmethod
+    def forward(ctx, a, mesh, target, back):
+        ctx.mesh, ctx.back = mesh, back
+        return a.redistribute(mesh, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.back), None, None, None
+
+
+class _Relayout(torch.autograd.Function):
+    """``x`` redistributed to ``target``; its gradient laid out back as
+    ``x`` except where it is a partial sum over an axis that replicates
+    ``x``, which stays partial: a weight's gradient is summed over the
+    data axes once, in the train step's layout."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, target):
+        ctx.mesh, ctx.src = mesh, tuple(x.placements)
+        return x.redistribute(mesh, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [gp if (sp.is_replicate() and gp.is_partial()) else sp
+                for sp, gp in zip(ctx.src, g.placements)]
+        return g.redistribute(ctx.mesh, back), None, None
+
+
+def _contiguous_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -214,17 +269,27 @@ class LM(nn.Module):
     ``tp`` is the TP degree whose head plan and padded vocabulary the
     parameters take. One device runs tp=1; only the meta device builds a
     larger one (the dry run's), and a real device with ``tp > 1`` raises
-    ``ValueError``."""
+    ``ValueError``. ``mesh`` (a ``DeviceMesh``) builds the partitioned
+    LM at the mesh's TP degree, on any device (see the module's
+    docstring); ``tp`` is then the mesh's "model" size."""
 
-    def __init__(self, cfg: ModelConfig, device=None, tp: int = 1):
+    def __init__(self, cfg: ModelConfig, device=None, tp: int = 1,
+                 mesh: Any = None):
         super().__init__()
         self.device = (torch.device(device) if device is not None
                        else resolve_device())
-        if tp != 1 and self.device.type != "meta":
+        self.mesh = mesh
+        if mesh is not None:
+            from ..launch.mesh import logical_mesh
+            self.spec_mesh = logical_mesh(mesh)
+            tp = tp_size(self.spec_mesh)
+            layers.register_shardings()
+        elif tp != 1 and self.device.type != "meta":
             raise ValueError(f"LM(tp={tp}) on {self.device}: a padded "
                              f"tensor-parallel plan is built on the meta "
                              f"device only (one device runs tp=1)")
         shapes = param_shapes(cfg, tp)
+        specs = param_specs(cfg, self.spec_mesh) if mesh is not None else {}
         self.cfg = cfg
         self.tp = tp
         self.plan, self.vocab_pad = _layout(cfg, tp)
@@ -236,9 +301,84 @@ class LM(nn.Module):
                 if not hasattr(node, part):
                     node.add_module(part, nn.Module())
                 node = getattr(node, part)
-            node.register_parameter(leaf, nn.Parameter(
-                torch.empty(shape, dtype=dt, device=self.device),
-                requires_grad=False))
+            if mesh is None:
+                t = torch.empty(shape, dtype=dt, device=self.device)
+            else:
+                t = self.sharded_empty(shape, dt, specs[name])
+            node.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+
+    # --------------------------------------------------------- partitioned
+    def sharded_empty(self, shape: Tuple[int, ...], dtype: torch.dtype,
+                      sp: Spec) -> torch.Tensor:
+        """An uninitialised DTensor of global ``shape`` laid out by ``sp`` on
+        the LM's mesh, its local shard (``shard_shape``) on the LM's
+        device."""
+        from torch.distributed.tensor import DTensor
+        local = torch.empty(shard_shape(tuple(shape), sp, self.spec_mesh),
+                            dtype=dtype, device=self.device)
+        return DTensor.from_local(local, self.mesh,
+                                  placements(sp, self.mesh),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_strides(shape))
+
+    def _constrain(self, x: torch.Tensor, sp: Spec) -> torch.Tensor:
+        """The reference's ``with_sharding_constraint``: ``x`` laid out by
+        ``sp`` (a ``redistribute``). Where ``x`` is laid out so already it
+        is returned as it is: a redistribute's backward would lay the
+        gradient out as ``x`` (all-reducing a partial one)."""
+        want = placements(sp, self.mesh)
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(self.mesh, want)
+
+    def _rows(self, make, b: int) -> torch.Tensor:
+        """``make(b)``, a tensor whose leading axis is the batch's; on the
+        mesh a DTensor whose batch follows the residual stream's layout,
+        each rank making its own rows (every row the same)."""
+        if self.mesh is None:
+            return make(b)
+        from torch.distributed.tensor import DTensor
+        sp = spec(self.spec_mesh, "batch", batch_size=b)
+        local = make(shard_shape((b,), sp, self.spec_mesh)[0])
+        pl = placements(sp + (None,) * (local.dim() - 1), self.mesh)
+        shape = (b,) + tuple(local.shape[1:])
+        return DTensor.from_local(local, self.mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_strides(shape))
+
+    def _gathered(self, h: torch.Tensor) -> torch.Tensor:
+        """A normed input as the products after it read it (a block's, the
+        head's): batch over the data axes, sequence and features whole
+        (under ``seq_shard`` the sequence-parallel all-gather). Made once,
+        where XLA shares one gather among the projections; eager DTensor
+        would gather for each product, or refuse to flatten a sharded
+        sequence. The identity without a mesh."""
+        if self.mesh is None:
+            return h
+        b = h.shape[0]
+        return self._constrain(h, spec(self.spec_mesh, "batch", None, None,
+                                       batch_size=b))
+
+    def _scattered(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel output (a partial sum over "model") laid out as
+        the residual ``x`` it is added to: a reduce-scatter under
+        ``seq_shard`` (an all-reduce where the sequence is whole), whose
+        backward gathers the gradient over "model", as Megatron's sequence
+        parallelism pairs them (``_ToResidual``). The identity without a
+        mesh."""
+        if self.mesh is None:
+            return a
+        back = placements(spec(self.spec_mesh, "batch", None, None,
+                               batch_size=x.shape[0]), self.mesh)
+        return _ToResidual.apply(a, self.mesh, tuple(x.placements), back)
+
+    def _act_spec(self, x: torch.Tensor) -> Spec:
+        """Residual-stream sharding: batch over the data axes (when
+        divisible); sequence over the model axis under ``seq_shard``."""
+        b, s, _ = x.shape
+        seq_ax = "model" if (self.cfg.seq_shard and s > 1
+                             and s % self.tp == 0) else None
+        return spec(self.spec_mesh, "batch", seq_ax, None, batch_size=b)
 
     # ------------------------------------------------------------- params
     def _leaf(self, name: str) -> torch.Tensor:
@@ -321,7 +461,7 @@ class LM(nn.Module):
         under MoE and 0.0 otherwise (no launch on a decode step)."""
         cfg = self.cfg
         aux: Any = 0.0
-        h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        h = self._gathered(layers.rmsnorm(x, p["ln1"], cfg.norm_eps))
         new_cache: Dict[str, Any] = {}
         impl = cfg.attn_impl if cache is None else "blockwise"
         if cfg.family in ("dense", "moe", "audio", "vlm"):
@@ -329,13 +469,13 @@ class LM(nn.Module):
                 cfg, self.plan, p["attn"], h, positions,
                 cache=cache.get("attn") if cache else None, window=window,
                 impl=impl)
-            x = x + a
+            x = x + self._scattered(a, x)
             new_cache["attn_kv"] = kv
         elif cfg.family == "ssm":
             a, sc = layers.ssm_layer(cfg, p["ssm"], h,
                                      cache=cache.get("ssm") if cache else None,
                                      want_cache=want_cache)
-            x = x + a
+            x = x + self._scattered(a, x)
             new_cache["ssm"] = sc
         elif cfg.family == "hybrid":
             a, kv = layers.attention_layer(
@@ -345,30 +485,51 @@ class LM(nn.Module):
             s_out, sc = layers.ssm_layer(
                 cfg, p["ssm"], h, cache=cache.get("ssm") if cache else None,
                 want_cache=want_cache)
-            # f32 as in the reference (a bf16 tensor times an f32 array
-            # promotes there; torch would keep bf16 for a 0-d operand)
-            mix = p["mix"].float()
-            x = x + (a.float() * mix[0]
-                     + s_out.float() * mix[1]).to(x.dtype) * 0.5
+            x = x + self._scattered(
+                layers.hybrid_mix(a, s_out, p["mix"], x.dtype), x)
             new_cache["attn_kv"] = kv
             new_cache["ssm"] = sc
         else:
             raise ValueError(cfg.family)
         if cfg.n_experts:
-            h2 = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            h2 = self._gathered(layers.rmsnorm(x, p["ln2"], cfg.norm_eps))
             mo, aux = layers.moe_layer(cfg, p["moe"], h2)
-            x = x + mo
+            x = x + self._scattered(mo, x)
         elif cfg.d_ff:
-            h2 = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + layers.swiglu(p["mlp"], h2, bias=cfg.mlp_bias)
+            h2 = self._gathered(layers.rmsnorm(x, p["ln2"], cfg.norm_eps))
+            x = x + self._scattered(
+                layers.swiglu(p["mlp"], h2, bias=cfg.mlp_bias), x)
+        if self.mesh is not None:
+            x = self._constrain(x, self._act_spec(x))
         return x, new_cache, aux
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+        return layers.embed_lookup(self.embed, tokens)
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+    def logits(self, x: torch.Tensor, keep: Optional[int] = None
+               ) -> torch.Tensor:
+        """The last ``keep`` positions' logits (all with None). On a mesh
+        that splits the sequence the final norm runs on the split residual
+        before the gather and the slice, so the norm's gradient is
+        reduce-scattered, not all-reduced."""
+        if self.mesh is not None and any(
+                p.is_shard(1) and self.mesh.size(i) > 1
+                for i, p in enumerate(x.placements)):
+            x = self._gathered(layers.rmsnorm(x, self.final_norm,
+                                              self.cfg.norm_eps))
+            x = x if keep is None else x[:, -keep:, :]
+        else:
+            x = x if keep is None else x[:, -keep:, :]
+            x = self._gathered(layers.rmsnorm(x, self.final_norm,
+                                              self.cfg.norm_eps))
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        if self.mesh is not None:
+            # the contraction axis d unsharded, the vocabulary over "model";
+            # the gradient stays a partial sum over the data axes until the
+            # train step lays it out (a redistribute would all-reduce it)
+            want = placements(spec(self.spec_mesh, None, "vocab"), self.mesh)
+            if tuple(head.placements) != want:
+                head = _Relayout.apply(head, self.mesh, want)
         lg = (x @ head).float()
         # mask padded vocab slots
         valid = torch.arange(self.vocab_pad, device=x.device) < self.cfg.vocab
@@ -390,8 +551,11 @@ class LM(nn.Module):
         aux loss summed over the layers (zero without MoE). With grad mode
         on and ``cfg.remat``, each block is recomputed in the backward."""
         x = self._inputs(tokens, embeds)
+        if self.mesh is not None:
+            x = self._constrain(x, self._act_spec(x))
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        positions = self._rows(lambda n: torch.arange(
+            s, device=self.device)[None, :].expand(n, s), b)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for lp in self._layers():
@@ -418,14 +582,15 @@ class LM(nn.Module):
         x, aux = self.forward(batch.get("tokens"), batch.get("embeds"),
                               window=cfg.attn_window)
         labels = batch["labels"]
-        lg = self.logits(x[:, -labels.shape[1]:, :])          # f32
-        lse = torch.logsumexp(lg, dim=-1)
-        # gather raises on a label of -1 (JAX's take_along_axis does not):
-        # clamp it, and the mask zeroes its term
-        gold = torch.gather(lg, -1, labels.clamp(min=0).long()[..., None]
-                            )[..., 0]
+        lg = self.logits(x, keep=labels.shape[1])             # f32
+        lse, gold = layers.ce_terms(lg, labels)
         mask = (labels >= 0).float()
-        ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+        total, count = torch.sum((lse - gold) * mask), mask.sum()
+        if self.mesh is not None:
+            # both sums over the batch all-reduced, as the reference's
+            # replicated loss needs them
+            total, count = (self._constrain(t, ()) for t in (total, count))
+        ce = total / torch.clamp(count, min=1.0)
         loss = ce + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
         return loss, {"ce": ce, "aux": aux}
 
@@ -456,6 +621,13 @@ class LM(nn.Module):
         return out
 
     def init_cache(self, batch: int, window: int) -> Params:
+        if self.mesh is not None:
+            specs = cache_specs(self.cfg, self.spec_mesh, batch=batch)
+            out = {}
+            for k, (shape, dt) in self.cache_shapes(batch, window).items():
+                t = self.sharded_empty(shape, dt, specs[k])
+                out[k] = t.fill_(2 ** 30) if k == "pos" else t.zero_()
+            return out
         out = {}
         for k, (shape, dt) in self.cache_shapes(batch, window).items():
             if k == "pos":    # never-written slots are masked out by position
@@ -488,7 +660,8 @@ class LM(nn.Module):
         t = int(t)
         x = self.embed_tokens(tokens)
         b = x.shape[0]
-        positions = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+        positions = self._rows(lambda n: torch.full(
+            (n, 1), t, dtype=torch.int32, device=self.device), b)
         if not cfg.is_attention_free:
             slot = t % cache["k"].shape[2]
         aw = cfg.attn_window if cfg.attn_window else 0
@@ -522,7 +695,7 @@ class LM(nn.Module):
                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prefill forward; returns last-position logits [B,1,V]."""
         x, _ = self.forward(tokens, embeds, window=self.cfg.attn_window)
-        return self.logits(x[:, -1:, :])
+        return self.logits(x, keep=1)
 
     @torch.no_grad()
     def prefill_with_cache(self, tokens: Optional[torch.Tensor],
@@ -536,10 +709,13 @@ class LM(nn.Module):
         first)."""
         cfg = self.cfg
         x = self._inputs(tokens, embeds)
+        if self.mesh is not None:
+            x = self._constrain(x, self._act_spec(x))
         b, s, _ = x.shape
         if window is None:
             window = min(s, cfg.attn_window) if cfg.attn_window else s
-        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        positions = self._rows(lambda n: torch.arange(
+            s, device=self.device)[None, :].expand(n, s), b)
         cache = self.init_cache(b, window)
         take = min(window, s)
         src = torch.arange(s - take, s, device=x.device)
@@ -555,4 +731,4 @@ class LM(nn.Module):
             if cfg.has_ssm:
                 for key in ("state", "conv_x", "conv_B", "conv_C"):
                     cache[key][i] = nc["ssm"][key]
-        return self.logits(x[:, -1:, :]), cache
+        return self.logits(x, keep=1), cache

@@ -18,9 +18,12 @@ name, or a tuple of axis names, as ``jax.sharding.PartitionSpec`` holds
 them (a one-axis tuple is written as the axis name, and an empty one as
 None, as ``PartitionSpec`` normalises them). ``shard_shape`` gives the
 per-device shape that ``NamedSharding(mesh, spec).shard_shape`` gives.
-Nothing here places a tensor: the port runs on one device, and the specs
-are read by the dry run (``repro_torch.launch.dryrun``) to count each
-device's bytes.
+:func:`placements` gives the spec as DTensor placements on a
+``DeviceMesh`` with the same axis names, whose local shard has that
+shape: the partitioned LM (``LM(cfg, device, mesh=...)``) and the
+partitioned dry run (``repro_torch.launch.dryrun``) lay tensors out by
+it. Without a mesh nothing here places a tensor; the dry run reads the
+specs to count each device's bytes.
 
 Indivisible head counts are handled by the *attention plan*: q-heads are
 padded (zero o_proj rows keep the function exact) and kv heads are expanded
@@ -105,6 +108,28 @@ def shard_shape(shape: Tuple[int, ...], sp: Spec, mesh: Any
                              f"{parts} parts, which do not divide {dim}")
         out.append(dim // parts)
     return tuple(out)
+
+
+def placements(sp: Spec, mesh: Any) -> Tuple[Any, ...]:
+    """DTensor placements of ``sp`` on the ``DeviceMesh`` ``mesh``, one per
+    mesh dimension: ``Shard(d)`` on every mesh axis that tensor dimension
+    ``d``'s entry names (an axis name, or a tuple of them such as
+    ``("pod", "data")``), ``Replicate()`` on the others. DTensor splits
+    a dimension over its mesh axes in the mesh's order, major first, the
+    order in which :func:`spec` names them, as ``NamedSharding`` does; so
+    the local shard has :func:`shard_shape`'s shape."""
+    from torch.distributed.tensor import Replicate, Shard
+    owner = {}
+    for d, entry in enumerate(sp):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        for a in names:
+            if a not in mesh.mesh_dim_names:
+                raise ValueError(f"spec {sp} names axis {a!r}, not on the "
+                                 f"mesh {mesh.mesh_dim_names}")
+            owner[a] = d
+    return tuple(Shard(owner[a]) if a in owner else Replicate()
+                 for a in mesh.mesh_dim_names)
 
 
 @dataclass(frozen=True)

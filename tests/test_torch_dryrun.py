@@ -212,15 +212,70 @@ def test_argument_bytes_at_published_widths(arch):
 
 
 def test_probes_equal_the_direct_count():
+    """The unpartitioned probes extrapolate to the direct global count
+    (``run_cell_with_probes`` raises otherwise); the record keeps the
+    partitioned probes' per-device counts, wire bytes included."""
     over = _smoke("hymba_1_5b", n_layers=4)
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         rec = dryrun.run_cell_with_probes("hymba_1_5b", _cut(shape), False,
                                           over)
+        direct = dryrun.run_cell("hymba_1_5b", _cut(shape), False, over)
+        assert rec["cost_global"] == direct["cost_global"]
         cc = rec["cost_corrected"]
         assert cc["flops"] == pytest.approx(rec["cost"]["flops"], rel=1e-9)
         assert cc["bytes_accessed"] == pytest.approx(
             rec["cost"]["bytes_accessed"], rel=1e-9)
-        assert cc["per_layer_flops"] > 0 and cc["wire_bytes"] is None
+        assert rec["cost"]["per_device"] == "partitioned"
+        assert cc["per_layer_flops"] > 0 and cc["wire_bytes"] > 0
+        assert rec["collectives"]["wire_bytes"] == cc["wire_bytes"]
+        assert rec["roofline"]["collective_s"] > 0
+
+
+def test_what_is_still_none_is_pinned():
+    """What the port's records still leave None: ``compile_s`` in every
+    record (nothing is compiled), and the wire bytes of a record without
+    partitioned probes (``run_cell``, ``--no-probes``) and of an MoE
+    cell, whose dispatch has no DTensor strategy yet; each says why."""
+    over = _smoke("deepseek_moe_16b", n_layers=2)
+    moe = dryrun.run_cell_with_probes("deepseek_moe_16b", _cut("decode_32k"),
+                                      False, over)
+    plain = dryrun.run_cell("hymba_1_5b", _cut("decode_32k"), False,
+                            _smoke("hymba_1_5b", n_layers=2))
+    for rec in (moe, plain):
+        assert rec["status"] == "ok" and rec["compile_s"] is None
+        assert rec["collectives"]["wire_bytes"] is None
+        assert rec["roofline"]["collective_s"] is None
+        assert rec["cost"]["per_device"] == "even_split"
+    assert moe["collectives"]["reason"] == dryrun.NO_MOE_STRATEGY
+    assert plain["collectives"]["reason"] == dryrun.NO_COLLECTIVES
+
+
+def _roofline_report():
+    """The reference's renderer, loaded by path (read-only)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "roofline_report", os.path.join(ROOT, "benchmarks",
+                                        "roofline_report.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_reference_report_renders_a_partitioned_record():
+    """``benchmarks/roofline_report.py``'s ``roofline_table`` renders a
+    partitioned dense record, its collective term now a number; its
+    ``dryrun_table`` still raises on the None ``compile_s``."""
+    report = _roofline_report()
+    rec = dryrun.run_cell_with_probes("mamba2_370m", _cut("decode_32k"),
+                                      False, _smoke("mamba2_370m",
+                                                    n_layers=2))
+    rec.pop("overrides", None)
+    table = report.roofline_table([rec])
+    row = table.splitlines()[-1]
+    assert row.startswith("| mamba2_370m | decode_32k | ")
+    assert f"{rec['roofline']['collective_s']:.3f}" in row
+    with pytest.raises(TypeError):
+        report.dryrun_table([rec])
 
 
 def test_jsonl_is_appended_and_read_back(tmp_path, capsys):
