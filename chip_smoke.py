@@ -93,17 +93,19 @@ flash's ``torch.library`` operator against a direct launch.
 The partitioned dry run (``dryrun_partitioned_phase``): the sweep's pod
 cells (and mamba2_370m decode_32k on 2x16x16) carry the partitioned
 L=1/L=2 probes, rank 0's local program on a DTensor mesh over torch's
-fake process group (gates: every non-MoE ``ok`` record has a numeric
-collective term and wire bytes and per-device counts marked
-``partitioned``; the MoE cells keep the even split and say why; printed
-per cell: GiB per device, the three roofline terms, wire bytes by kind).
-Then one rank's shard for real: hymba_1_5b's prefill of 4 x 2048 tokens
+fake process group, the MoE cells' expert-parallel dispatch included
+(gates: every ``ok`` record has a numeric collective term and wire bytes
+and per-device counts marked ``partitioned``; printed per cell: GiB per
+device, the three roofline terms, wire bytes by kind). Then one rank's
+shard for real, for each of ``PART_SHARDS``: hymba_1_5b's and
+deepseek_moe_16b's prefill of 4 x 2048 tokens at their published widths
 with flash on a (data=1, model=2) mesh over a fake world of 2 ranks, rank
 0's local program run on cuda:0 beside its meta trace (gates: FLOPs meta
-= cuda, flash's at the local 15 q / 3 KV heads; argument bytes = the
-local shards'; collective count meta = cuda; predicted peak within 5% of
-``max_memory_allocated``; 32 flash launches on the tensor cores; flash
-held to its plain version at the local shape). Last,
+= cuda, flash's at the local heads, 15 q / 3 KV of 64 and 8 of 128;
+argument bytes = the local shards'; collective count meta = cuda;
+predicted peak within 5% of ``max_memory_allocated``; flash launched
+once a layer on the tensor cores, 32 and 28 times; flash held to its
+plain version at the local shape). Last,
 ``examples_phase`` runs the four torch examples on cuda (gates: exit 0,
 the JAX examples' IIs, finite losses).
 
@@ -191,7 +193,8 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "campaign_path_launches", "moe_path_launches",
                  "moe_shape", "train_path_launches",
                  "dryrun_path_launches", "partitioned_path_launches",
-                 "partitioned_shape")
+                 "partitioned_shape", "partitioned_moe_path_launches",
+                 "partitioned_moe_shape")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 # the dry run: the sweep's meshes (multi_pod, and None for every arch x
 # shape or the (arch, shape) cells to run). Every cell on both meshes took
@@ -212,11 +215,14 @@ DRY_WORKERS = 8
 DRY_ARCH = "hymba_1_5b"
 DRY_CELLS = (("prefill", 2048, 4, 3), ("decode", 2048, 4, 5),
              ("train", 4096, 4, 1))
-# one rank's shard for real: hymba_1_5b's prefill of 4 x 2048 tokens with
-# flash, on a (data=1, model=tp) mesh over a fake world of tp ranks, tp the
-# first of these the attention plan takes; the predicted peak within
+# one rank's shard for real, per (arch, (kind, seq_len, global batch,
+# timed steps)): the prefill of 4 x 2048 tokens with flash at the arch's
+# published widths (deepseek_moe_16b's 32 of 64 experts a rank), on a
+# (data=1, model=tp) mesh over a fake world of tp ranks, tp the first of
+# PART_TP the attention plan takes; the predicted peak within
 # PART_PEAK_TOL of max_memory_allocated
-PART_CELL = ("prefill", 2048, 4, 3)
+PART_SHARDS = (("hymba_1_5b", ("prefill", 2048, 4, 3)),
+               ("deepseek_moe_16b", ("prefill", 2048, 4, 2)))
 PART_TP = (2, 4)
 PART_PEAK_TOL = 0.05
 # the JAX examples' IIs on the CPU (examples/quickstart.py and
@@ -231,8 +237,14 @@ EXAMPLE_IIS = {
 EXAMPLES_TIMEOUT_S = 600
 
 
+START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``t_s``)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - START}), flush=True)
 
 
 def cuda_ms(torch, fn, reps=REPS, flush=None):
@@ -438,8 +450,10 @@ def kernel_phase(torch):
                 "no_clen_ms": cuda_ms(torch, lambda: true_counts_window(
                     cvars, csign, assign), reps=REPS if size == "4x4"
                     else 10, flush=flush),
+                # the plain version takes ~1 s a launch at 8x8, B=256
                 "plain_ms": cuda_ms(torch, lambda: true_counts_window_ref(
-                    cvars, csign, assign), reps=REPS, flush=flush),
+                    cvars, csign, assign), reps=REPS if size == "4x4"
+                    else 5, flush=flush),
                 "library_ms": None,
                 "bound": clause_eval_bound_ms(cvars, v1, B, clen),
                 "bound_no_clen": clause_eval_bound_ms(cvars, v1, B),
@@ -2414,10 +2428,17 @@ def dryrun_sweep(torch, smi):
     cells = [(a, s, mp) for mp, only in DRY_SWEEP for a in ARCHS
              for s in SHAPES if only is None or (a, s) in only]
     t0 = time.perf_counter()
+
+    def cost(cell):
+        # the trace's ops grow with depth and width; an MoE cell traces
+        # its dispatch besides: the costliest cells start first
+        cfg = get_config(cell[0])
+        return cfg.n_layers * cfg.d_model * (2 if cfg.n_experts else 1)
     with ProcessPoolExecutor(DRY_WORKERS, mp_context=multiprocessing
                              .get_context("spawn")) as ex:
-        futures = [ex.submit(_dry_cell, *c) for c in cells]
-        recs = [f.result() for f in futures]
+        futures = {c: ex.submit(_dry_cell, *c)
+                   for c in sorted(cells, key=cost, reverse=True)}
+        recs = [futures[c].result() for c in cells]
     wall = time.perf_counter() - t0
     out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
     os.makedirs(out, exist_ok=True)
@@ -2672,13 +2693,12 @@ def dryrun_phase(torch, smi):
 
 def partitioned_sweep_gates(smi, cells, recs):
     """The sweep's partitioned records: every ``ok`` cell probed on its
-    mesh (the pod mesh, ``DRY_PROBED_MULTIPOD``) has a numeric
-    ``collective_s`` and ``wire_bytes`` and per-device cost and temp
-    marked ``"partitioned"``, except the MoE cells, which keep the even
-    split and say why (``dryrun.NO_MOE_STRATEGY``). Prints each probed
-    cell's GiB per device, roofline terms, wire bytes and kinds."""
+    mesh (the pod mesh, ``DRY_PROBED_MULTIPOD``), the MoE cells included,
+    has a numeric ``collective_s`` and ``wire_bytes`` and per-device cost
+    and temp marked ``"partitioned"``. Prints each probed cell's GiB per
+    device, roofline terms, wire bytes and kinds."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import roofline
     rows, bad, moe = [], [], []
     for (arch, shape, mp), rec in zip(cells, recs):
         if rec.get("status") != "ok":
@@ -2688,11 +2708,7 @@ def partitioned_sweep_gates(smi, cells, recs):
         key = f"{arch}/{shape}/{rec['mesh']}"
         col, rf = rec["collectives"], rec["roofline"]
         if get_config(arch).n_experts:
-            if col != {"wire_bytes": None,
-                       "reason": dryrun.NO_MOE_STRATEGY}:
-                bad.append((key, "MoE record", col))
             moe.append(key)
-            continue
         if not (isinstance(col.get("wire_bytes"), float)
                 and isinstance(rf.get("collective_s"), float)
                 and rec["cost"]["per_device"] == "partitioned"
@@ -2708,7 +2724,7 @@ def partitioned_sweep_gates(smi, cells, recs):
     if bad:
         raise AssertionError(f"partitioned sweep: {bad[:4]}")
     emit("dryrun_partitioned_sweep", nvidia_smi=smi, probed=len(rows),
-         moe_even_split=moe,
+         moe_cells=moe,
          columns=["cell", "GiB_per_device", "compute_s", "memory_s",
                   "collective_s", "bottleneck", "wire_bytes",
                   "collective_count", "by_kind", "useful_flop_ratio"],
@@ -2720,11 +2736,13 @@ def partitioned_sweep_gates(smi, cells, recs):
     return len(rows)
 
 
-def partitioned_shard_phase(torch, smi):
-    """One rank's shard for real: hymba_1_5b at its published widths, bf16,
-    flash, seeded weights, ``PART_CELL``'s prefill on a (data=1,
-    model=tp) mesh over a fake world of tp ranks, rank 0's local program
-    on cuda:0. The dry run traces the same partitioned step on meta.
+def partitioned_shard_phase(torch, smi, arch, cell):
+    """One rank's shard for real: ``arch`` at its published widths, bf16,
+    flash, seeded weights (``LM.init`` on the local shards), ``cell``'s
+    prefill on a (data=1, model=tp) mesh over a fake world of tp ranks,
+    rank 0's local program on cuda:0 (for an MoE arch, E / tp experts and
+    the router over every expert). The dry run traces the same
+    partitioned step on meta.
     Gates: the FLOPs counted on meta equal those counted on cuda, and
     flash's among them are the local head count's; the argument bytes
     from the specs equal the local tensors'; the collective count on
@@ -2743,7 +2761,7 @@ def partitioned_shard_phase(torch, smi):
     from repro_torch.launch.mesh import fake_world, make_mesh
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.sharding import plan_attention
-    cfg = get_config(DRY_ARCH).replace(attn_impl="flash")
+    cfg = get_config(arch).replace(attn_impl="flash")
 
     def plan_ok(tp):
         try:
@@ -2754,7 +2772,7 @@ def partitioned_shard_phase(torch, smi):
     tp = next(t for t in PART_TP if plan_ok(t))
     plan = plan_attention(cfg.n_heads, cfg.n_kv_heads, tp)
     mesh = make_mesh((1, tp), ("data", "model"))
-    kind, seq, batch, reps = PART_CELL
+    kind, seq, batch, reps = cell
     shp = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -2844,6 +2862,7 @@ def partitioned_shard_phase(torch, smi):
     emit("dryrun_partitioned_shard", nvidia_smi=smi, arch=cfg.name,
          cell=shp.name, mesh=mesh.name, tp=tp, plan=[plan.h_pad,
                                                      plan.kv_virtual],
+         experts_local=cfg.n_experts // tp,
          attn_impl="flash", meta_trace_s=meta_s,
          meta_flops=meta["flops"], cuda_flops=real["flops"],
          flash_flops=got_flash, flash_local_q=list(q_shape),
@@ -2873,14 +2892,22 @@ def partitioned_shard_phase(torch, smi):
 
 def dryrun_partitioned_phase(torch, smi, sweep):
     """The partitioned dry run: (a) the sweep's partitioned records and
-    their gates, (b) one rank's shard of hymba_1_5b run on the card beside
-    its meta trace. Returns (b)'s launch counts and flash row."""
+    their gates, (b) one rank's shard of each of ``PART_SHARDS``
+    (hymba_1_5b, deepseek_moe_16b) run on the card beside its meta trace.
+    Returns (b)'s launch counts and flash rows, one per shard."""
     t0 = time.perf_counter()
     probed = partitioned_sweep_gates(smi, *sweep)
-    launches, flash = partitioned_shard_phase(torch, smi)
+    shards, seconds = [], {}
+    for arch, cell in PART_SHARDS:
+        t1 = time.perf_counter()
+        shards.append(partitioned_shard_phase(torch, smi, arch, cell))
+        torch.cuda.empty_cache()
+        seconds[arch] = time.perf_counter() - t1
     emit("dryrun_partitioned", probed_cells=probed,
-         seconds=time.perf_counter() - t0, launches=launches)
-    return launches, flash
+         seconds=time.perf_counter() - t0, shard_seconds=seconds,
+         launches={arch: launches for (arch, _), (launches, _)
+                   in zip(PART_SHARDS, shards)})
+    return shards
 
 
 def examples_phase(smi):
@@ -3008,7 +3035,8 @@ def main() -> int:
     train_launches = train_phase(torch, smi)
     t0 = time.perf_counter()
     dry_launches, sweep = dryrun_phase(torch, smi)
-    part_launches, part_flash = dryrun_partitioned_phase(torch, smi, sweep)
+    (part_launches, part_flash), (moe_part_launches, moe_part_flash) = \
+        dryrun_partitioned_phase(torch, smi, sweep)
     del sweep
     examples_phase(smi)
     emit("dryrun_and_examples", seconds=time.perf_counter() - t0)
@@ -3039,9 +3067,11 @@ def main() -> int:
         t["train_path_launches"] = train_launches[name]
         t["dryrun_path_launches"] = dry_launches[name]
         t["partitioned_path_launches"] = part_launches[name]
+        t["partitioned_moe_path_launches"] = moe_part_launches[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
             t["partitioned_shape"] = part_flash
+            t["partitioned_moe_shape"] = moe_part_flash
         if name.startswith("clause_eval"):
             t["note"] = CLAUSE_NOTE
         kernels.append({

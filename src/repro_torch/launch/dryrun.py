@@ -51,9 +51,10 @@ What a record holds, and how it differs from the reference's:
   collective term. :func:`run_cell` alone (and ``--no-probes``) keeps the
   global counts divided by the mesh size (``"per_device":
   "even_split"``, exact on 1x1) and no collectives
-  (``NO_COLLECTIVES``); the MoE cells keep it too, until their dispatch
-  has a sharding strategy (``NO_MOE_STRATEGY``). The global counts are
-  kept under ``cost_global`` and ``memory_global``.
+  (``NO_COLLECTIVES``), for every cell. The MoE cells are partitioned
+  as the others are: expert parallelism over "model", each rank routing
+  its rows' groups (``models.layers._moe_sharded``). The global counts
+  are kept under ``cost_global`` and ``memory_global``.
 - ``lower_s`` is the seconds to build the meta LM and inputs, ``trace_s``
   the traced step's; nothing is compiled (``compile_s`` is None).
 
@@ -89,10 +90,6 @@ from .mesh import (LogicalMesh, device_mesh, fake_world,
 NO_COLLECTIVES = ("an even split of the global trace: collectives are "
                   "counted by the partitioned probes "
                   "(run_cell_with_probes) only")
-NO_MOE_STRATEGY = ("the MoE dispatch (the router's top-k sort, the capacity "
-                   "scatter and gather, the expert products) has no DTensor "
-                   "sharding strategy in the port yet, so its cells are not "
-                   "traced partitioned: an even split, no collectives")
 
 
 # ------------------------------------------------------------ arguments
@@ -432,14 +429,13 @@ def partitioned_cell(cfg: ModelConfig, shape: ShapeConfig,
     issues the collectives NCCL would, all-to-all included, where a cpu
     mesh swaps an all-to-all for an all-gather) and the device's own
     otherwise. ``init`` (a generator on ``device``) draws the parameters'
-    local shards N(0, 0.02); otherwise they stay uninitialised."""
+    local shards as ``LM.init`` draws them; otherwise they stay
+    uninitialised."""
     dev = torch.device(device)
     dm = device_mesh(mesh, "cuda" if dev.type == "meta" else dev.type)
     lm = LM(cfg, device, mesh=dm)
     if init is not None:
-        with torch.no_grad():
-            for p in lm.parameters():
-                p._local_tensor.normal_(0.0, 0.02, generator=init)
+        lm.init(init)
     groups = cell_arguments(cfg, shape, mesh)
     args = {k: _sharded_args(lm, s, sp) for k, (s, sp) in groups.items()
             if k not in ("params", "t")}
@@ -571,14 +567,13 @@ def run_cell_with_probes(arch: str, shape: Union[str, ShapeConfig],
       the extrapolated per-device ``flops``, ``bytes_accessed`` and
       ``wire_bytes``, and ``cost``, ``memory``'s temp and output bytes,
       ``collectives`` (count and ``by_kind`` extrapolated; ``top`` the
-      L=2 probe's) and ``roofline`` take them, marked ``"partitioned"``.
-    - MoE cells keep the even split (``NO_MOE_STRATEGY``)."""
+      L=2 probe's) and ``roofline`` take them, marked ``"partitioned"``,
+      for every cell, the MoE cells included."""
     rec = run_cell(arch, shape, multi_pod, overrides, mesh=mesh)
     if rec.get("status") != "ok":
         return rec
     cfg, shp = _resolve(arch, shape, overrides)
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
-    n = mesh.size
     L = cfg.n_layers
     probes = {}
     for depth in (1, 2):
@@ -593,15 +588,6 @@ def run_cell_with_probes(arch: str, shape: Union[str, ShapeConfig],
             raise ValueError(f"{rec['arch']}/{rec['shape']}/{rec['mesh']}: "
                              f"probe-corrected {key} {got} differs from the "
                              f"direct count {want}")
-    if cfg.n_experts:
-        rec["cost_corrected"] = {
-            "flops": rec["cost"]["flops"],
-            "bytes_accessed": rec["cost"]["bytes_accessed"],
-            "wire_bytes": None,
-            "per_layer_flops": (probes[2]["cost_global"]["flops"]
-                                - probes[1]["cost_global"]["flops"]) / n}
-        rec["collectives"] = {"wire_bytes": None, "reason": NO_MOE_STRATEGY}
-        return rec
     part = {d: trace_partitioned(cfg.replace(n_layers=d, scan_layers=False),
                                  shp, mesh) for d in (1, 2)}
     ext = {k: _extrapolate(part[1][k], part[2][k], L)

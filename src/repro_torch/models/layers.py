@@ -455,17 +455,19 @@ def _moe_groups(cfg: ModelConfig, t: int) -> int:
     return g
 
 
-def _route(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    """The router of both dispatches: x [B,S,D] in groups of ``sg`` tokens.
+def _route(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           t: Optional[int] = None):
+    """The router of both dispatches: x [B,S,D] in groups of ``sg``
+    tokens, ``sg`` and the capacity those of ``t`` tokens (default: x's
+    own; a rank's rows hold whole groups of the global batch's ``t``).
     Returns (xg [g,sg,d], probs [g,sg,e] f32, gate [g,sg,k] f32 (top-k
     probabilities renormalised), idx [g,sg,k] int64, cap)."""
     b, s, d = x.shape
-    t = b * s
+    t = b * s if t is None else t
     e, k = cfg.n_experts, cfg.top_k
-    ng = _moe_groups(cfg, t)
-    sg = t // ng
+    sg = t // _moe_groups(cfg, t)
     cap = max(1, int(cfg.capacity_factor * sg * k / e))
-    xg = x.reshape(ng, sg, d)
+    xg = x.reshape(b * s // sg, sg, d)
     logits = xg.float() @ p["router"].float()                # [g,sg,e]
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k: descending, the lower index first on ties
@@ -488,13 +490,12 @@ def _slots(idx: torch.Tensor, e: int, cap: int):
     return onehot, pos.long(), pos < cap
 
 
-def _aux(cfg: ModelConfig, probs: torch.Tensor,
-         onehot: torch.Tensor) -> torch.Tensor:
-    """Load-balancing loss e * sum(mean prob * mean assignment count)."""
-    e, k = cfg.n_experts, cfg.top_k
-    me = probs.reshape(-1, e).mean(dim=0)
-    ce = onehot.reshape(-1, k, e).sum(1).mean(0)
-    return e * torch.sum(me * ce)
+def _aux(cfg: ModelConfig, psum: torch.Tensor, csum: torch.Tensor,
+         t: int) -> torch.Tensor:
+    """Load-balancing loss e * sum(mean prob * mean assignment count) of
+    ``t`` tokens, from the sums over them of the router probabilities and
+    of the one-hot assignments ([e] f32 each)."""
+    return cfg.n_experts * torch.sum((psum / t) * (csum / t))
 
 
 def _experts(p: Params, xin: torch.Tensor) -> torch.Tensor:
@@ -509,6 +510,186 @@ def _experts(p: Params, xin: torch.Tensor) -> torch.Tensor:
     return eout.reshape(e, g, c, d).transpose(0, 1)
 
 
+def _local_experts(keep: torch.Tensor, idx: torch.Tensor, lo: int, el: int,
+                   e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keep, idx) for the ``el`` experts from ``lo`` that hold weights
+    here: a slot routed to another expert is dropped here, and idx counts
+    from ``lo``. Unchanged when every expert is here."""
+    if el == e:
+        return keep, idx
+    return keep & (idx >= lo) & (idx < lo + el), idx - lo
+
+
+def _sort_dispatch(p: Params, xg: torch.Tensor, gate: torch.Tensor,
+                   idx: torch.Tensor, cap: int, lo: int, e: int
+                   ) -> torch.Tensor:
+    """The sort/scatter dispatch of ``moe_sort`` on the experts from
+    ``lo`` whose weights ``p`` holds: [g,sg,d] in xg's dtype, the sum of
+    each token's gated outputs of those experts."""
+    ng, sg, d = xg.shape
+    k = idx.shape[-1]
+    el = p["w_gate"].shape[0]
+    flat_e = idx.reshape(ng, sg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)                # [g, sg*k]
+    # position within expert = rank - first occurrence of that expert
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.arange(sg * k, device=xg.device)[None, :] - first
+    keep, sorted_e = _local_experts(pos < cap, sorted_e, lo, el, e)
+    dest = torch.where(keep, sorted_e * cap + pos, el * cap)  # spare row
+    token = order // k                                       # [g, sg*k]
+    src = torch.gather(xg, 1, token[..., None].expand(-1, -1, d))
+    xin = torch.zeros((ng, el * cap + 1, d), dtype=xg.dtype, device=xg.device)
+    xin.scatter_(1, dest[..., None].expand(-1, -1, d), src)
+    eout = _experts(p, xin[:, :el * cap].reshape(ng, el, cap, d))
+    eout = eout.reshape(ng, el * cap, d)
+
+    back = torch.gather(eout, 1, torch.where(keep, dest, 0)[..., None]
+                        .expand(-1, -1, d))                  # [g, sg*k, d]
+    gflat = torch.gather(gate.reshape(ng, sg * k), 1, order)
+    w = torch.where(keep, gflat, 0.0).float()
+    contrib = back.float() * w[..., None]
+    out = torch.zeros((ng, sg, d), dtype=torch.float32, device=xg.device)
+    out.scatter_add_(1, token[..., None].expand(-1, -1, d), contrib)
+    return out.to(xg.dtype)
+
+
+def _einsum_dispatch(p: Params, xg: torch.Tensor, gate: torch.Tensor,
+                     idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+                     cap: int, lo: int, e: int) -> torch.Tensor:
+    """The one-hot dispatch of ``moe_einsum`` on the experts from ``lo``
+    whose weights ``p`` holds: [g,sg,d] in xg's dtype."""
+    ng, sg, d = xg.shape
+    el = p["w_gate"].shape[0]
+    keep, idx = _local_experts(keep, idx, lo, el, e)
+    col = torch.where(keep, idx * cap + pos, el * cap)       # [g,sg,k]
+    dispatch = torch.zeros((ng, sg, el * cap + 1), dtype=torch.float32,
+                           device=xg.device)
+    combine = torch.zeros_like(dispatch)
+    dispatch.scatter_(2, col, 1.0)
+    combine.scatter_(2, col, gate)
+    dispatch = dispatch[..., :el * cap].to(xg.dtype)         # [g,sg,el*cap]
+    combine = combine[..., :el * cap].to(xg.dtype)
+    xin = dispatch.transpose(1, 2) @ xg                      # [g,el*cap,d]
+    eout = _experts(p, xin.reshape(ng, el, cap, d))
+    return combine @ eout.reshape(ng, el * cap, d)           # [g,sg,d]
+
+
+def _routed(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            t: Optional[int] = None, lo: int = 0, aux_grad: bool = True):
+    """The routed experts of ``x`` [B,S,D]'s groups (of ``t`` tokens'
+    grouping, default x's own), by ``cfg.moe_impl``, on the experts from
+    ``lo`` whose weights ``p`` holds (every expert on one device).
+    Returns (out [B,S,D], the sums over x's tokens of the router
+    probabilities and of the one-hot assignments, [e] f32 each). Without
+    ``aux_grad`` no gradient flows back through the probabilities' sum."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    xg, probs, gate, idx, cap = _route(cfg, p, x, t)
+    if cfg.moe_impl == "sort":
+        out = _sort_dispatch(p, xg, gate, idx, cap, lo, e)
+        onehot = F.one_hot(idx, e).float()
+    else:
+        onehot, pos, keep = _slots(idx, e, cap)
+        out = _einsum_dispatch(p, xg, gate, idx, pos, keep, cap, lo, e)
+    pa = probs if aux_grad else probs.detach()
+    return (out.reshape(b, s, d), pa.reshape(-1, e).sum(0),
+            onehot.reshape(-1, e).sum(0))
+
+
+def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 shared: Optional[torch.Tensor]):
+    """The routed experts on DTensors, expert-parallel (a local map; no
+    DTensor rule is needed for the router, the sort, the scatters and
+    gathers): ``x`` [B,S,D] split on its batch over the data axes and
+    whole over "model", the expert weights [E, in, out] split over
+    "model" (``E / tp`` experts a rank; under ``fsdp_experts`` also over
+    the data axes, all-gathered here at use and their gradients
+    reduce-scattered back). Every rank routes its rows' groups over all
+    experts, as on one device (the same groups, capacity and drops), and
+    runs its own experts: the output is a partial sum over "model" (plus
+    ``shared``, the shared experts' partial sum), which the caller
+    reduce-scatters into the residual. Where the groups do not fall
+    inside one data shard (a decode batch of fewer than ``moe_group``
+    tokens is one group) the tokens are all-gathered over the data axes,
+    each rank routes every group and keeps its rows of the output. The
+    aux loss's gradient flows through one rank of the axes whose ranks
+    route the same tokens. Returns (out, the two [e] sums of
+    :func:`_routed`, partial sums over the data axes that split the
+    groups)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    b, s, _ = x.shape
+    rows = [i for i, pl in enumerate(x.placements) if pl.is_shard(0)]
+    if m in rows or not all(pl.is_replicate() or pl.is_shard(0)
+                            for pl in x.placements):
+        raise ValueError(f"moe_layer: tokens laid out as {x.placements}; "
+                         f"the dispatch takes them split on the batch over "
+                         f"the data axes only")
+    split = math.prod(mesh.size(i) for i in rows)
+    whole = _moe_groups(cfg, b * s) % split != 0
+    el = cfg.n_experts // mesh.size(m)
+    lo = mesh.get_local_rank(m) * el
+    first = all(mesh.get_local_rank(i) == 0
+                for i in [m] + (rows if whole else []))
+    r = sum(mesh.get_local_rank(i) * math.prod(
+        mesh.size(j) for j in rows if j > i) for i in rows)
+    nb = b // split
+
+    def lay(on_rows, on_model):
+        return [on_model if i == m else on_rows if i in rows else Replicate()
+                for i in range(mesh.ndim)]
+
+    rep, part, sh0 = Replicate(), Partial(), Shard(0)
+    out_pl = lay(sh0, part)
+    sums = lay(rep if whole else part, rep)
+    x_in = lay(rep if whole else sh0, rep)
+    x_grad = lay(part if whole else sh0, part)
+    exp_in, exp_grad = lay(rep, sh0), lay(part, sh0)
+    shared_in = None if shared is None else out_pl
+    shared_grad = None if shared is None else lay(sh0, rep)
+
+    def local(x_l, router, wg, wu, wd, sh):
+        out, psum, csum = _routed(
+            cfg, {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd},
+            x_l, b * s, lo, first)
+        if whole:
+            out = out[r * nb:(r + 1) * nb]
+        if sh is not None:
+            out = out + sh
+        return out, psum, csum
+
+    return _local_map(
+        local, (out_pl, sums, sums),
+        (x_in, lay(rep, rep), exp_in, exp_in, exp_in, shared_in),
+        (x, p["router"], p["w_gate"], p["w_up"], p["w_down"], shared),
+        (x_grad, lay(part, part), exp_grad, exp_grad, exp_grad,
+         shared_grad))
+
+
+def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixture-of-experts block, the dispatch by ``cfg.moe_impl``: the
+    shared experts' SwiGLU, the routed experts (:func:`_routed`; on
+    DTensors :func:`_moe_sharded`, whose probability and assignment sums
+    are all-reduced over the data axes that split the groups) and the
+    aux loss over all tokens. Returns (out [B,S,D], aux loss f32)."""
+    b, s, _ = x.shape
+    shared = swiglu(p["shared"], x) if cfg.n_shared_experts else None
+    if is_sharded(x):
+        from torch.distributed.tensor import Replicate
+        out, psum, csum = _moe_sharded(cfg, p, x, shared)
+        everywhere = [Replicate()] * x.device_mesh.ndim
+        psum, csum = (v.redistribute(x.device_mesh, everywhere)
+                      for v in (psum, csum))
+    else:
+        out, psum, csum = _routed(cfg, p, x)
+        if shared is not None:
+            out = out + shared
+    return out, _aux(cfg, psum, csum, b * s)
+
+
 def moe_sort(cfg: ModelConfig, p: Params, x: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort/scatter MoE dispatch: tokens argsorted (stably) by expert
@@ -516,38 +697,7 @@ def moe_sort(cfg: ModelConfig, p: Params, x: torch.Tensor,
     (overflow goes to a spare row that is sliced off, where the reference
     drops the write), and combined back with a scatter-add in f32.
     Returns (out [B,S,D], aux loss f32)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    xg, probs, gate, idx, cap = _route(cfg, p, x)
-    ng, sg = xg.shape[:2]
-    flat_e = idx.reshape(ng, sg * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)                # [g, sg*k]
-    # position within expert = rank - first occurrence of that expert
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    pos = torch.arange(sg * k, device=x.device)[None, :] - first
-    keep = pos < cap
-    dest = torch.where(keep, sorted_e * cap + pos, e * cap)  # spare row
-    token = order // k                                       # [g, sg*k]
-    src = torch.gather(xg, 1, token[..., None].expand(-1, -1, d))
-    xin = torch.zeros((ng, e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xin.scatter_(1, dest[..., None].expand(-1, -1, d), src)
-    eout = _experts(p, xin[:, :e * cap].reshape(ng, e, cap, d))
-    eout = eout.reshape(ng, e * cap, d)
-
-    back = torch.gather(eout, 1, torch.where(keep, dest, 0)[..., None]
-                        .expand(-1, -1, d))                  # [g, sg*k, d]
-    gflat = torch.gather(gate.reshape(ng, sg * k), 1, order)
-    w = torch.where(keep, gflat, 0.0).float()
-    contrib = back.float() * w[..., None]
-    out = torch.zeros((ng, sg, d), dtype=torch.float32, device=x.device)
-    out.scatter_add_(1, token[..., None].expand(-1, -1, d), contrib)
-    out = out.to(x.dtype).reshape(b, s, d)
-
-    aux = _aux(cfg, probs, F.one_hot(idx, e).float())
-    if cfg.n_shared_experts:
-        out = out + swiglu(p["shared"], x)
-    return out, aux
+    return moe_layer(cfg.replace(moe_impl="sort"), p, x)
 
 
 def moe_einsum(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -563,35 +713,7 @@ def moe_einsum(cfg: ModelConfig, p: Params, x: torch.Tensor,
     without the five-axis tensor. The combine weights are rounded to the
     model dtype before the product, as in the reference.
     Returns (out [B,S,D], aux loss f32)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    xg, probs, gate, idx, cap = _route(cfg, p, x)
-    ng, sg = xg.shape[:2]
-    onehot, pos, keep = _slots(idx, e, cap)
-    col = torch.where(keep, idx * cap + pos, e * cap)        # [g,sg,k]
-    dispatch = torch.zeros((ng, sg, e * cap + 1), dtype=torch.float32,
-                           device=x.device)
-    combine = torch.zeros_like(dispatch)
-    dispatch.scatter_(2, col, 1.0)
-    combine.scatter_(2, col, gate)
-    dispatch = dispatch[..., :e * cap].to(x.dtype)           # [g,sg,e*cap]
-    combine = combine[..., :e * cap].to(x.dtype)
-    xin = dispatch.transpose(1, 2) @ xg                      # [g,e*cap,d]
-    eout = _experts(p, xin.reshape(ng, e, cap, d))
-    out = combine @ eout.reshape(ng, e * cap, d)             # [g,sg,d]
-    out = out.reshape(b, s, d)
-    aux = _aux(cfg, probs, onehot)
-    if cfg.n_shared_experts:
-        out = out + swiglu(p["shared"], x)
-    return out, aux
-
-
-def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mixture-of-experts block; impl selected by cfg.moe_impl."""
-    if cfg.moe_impl == "sort":
-        return moe_sort(cfg, p, x)
-    return moe_einsum(cfg, p, x)
+    return moe_layer(cfg.replace(moe_impl="einsum"), p, x)
 
 
 # ------------------------------------------------------------------- SSD

@@ -8,14 +8,18 @@ leading layer axis, plus ``embed``, ``final_norm`` and ``lm_head``, each
 in the reference's [in, out] layout (routed experts [E, in, out]);
 ``state_dict()`` keys are the tree's paths joined by dots
 (``blocks.attn.wq``, ``blocks.moe.shared.w_up``), which is what
-``repro_torch.convert.lm_params_from_numpy`` produces. The port runs on
-one GPU, so a real LM reads the head plan at tp=1, there are no sharding
-constraints, and ``fsdp_experts`` (the reference's FSDP sharding of
-expert weights over the data axes) has nothing to shard: every expert
-lives on the one card. The dry run (``repro_torch.launch.dryrun``) builds
-the LM on the meta device at a mesh's TP degree (``LM(cfg, "meta",
-tp=16)``: the reference's padded head plan and vocabulary), and reads
-each leaf's layout from :func:`param_specs` and :func:`cache_specs`.
+``repro_torch.convert.lm_params_from_numpy`` produces. Without a mesh
+the LM runs on one GPU: it reads the head plan at tp=1, there are no
+sharding constraints, and ``fsdp_experts`` (the reference's FSDP sharding
+of expert weights over the data axes) has nothing to shard, every expert
+living on the one card. On a mesh (below) the routed experts [E, in,
+out] are split over "model", and under ``fsdp_experts`` their ``in``
+axis over the data axes too, as the reference's specs lay them out; the
+MoE layer all-gathers them at use. The dry run
+(``repro_torch.launch.dryrun``) builds the LM on the meta device at a
+mesh's TP degree (``LM(cfg, "meta", tp=16)``: the reference's padded
+head plan and vocabulary), and reads each leaf's layout from
+:func:`param_specs` and :func:`cache_specs`.
 
 The partitioned LM, ``LM(cfg, device, mesh=dm)`` with a ``DeviceMesh``
 ``dm`` of axes ("data", "model") or ("pod", "data", "model")
@@ -398,10 +402,13 @@ class LM(nn.Module):
         dtype), so no temporary the size of a leaf exists: at
         deepseek_moe_16b's widths one expert leaf is 10 GB in bf16. The
         numbers differ from JAX's: carry a JAX tree across with
-        ``lm_params_from_numpy``."""
+        ``lm_params_from_numpy``. On a mesh each leaf's local shard is
+        drawn so (a rank's own draw, not a slice of one global draw)."""
         for name in param_shapes(self.cfg, self.tp):
             base = name.split(".")[-1]
             leaf = self._leaf(name)
+            if self.mesh is not None:
+                leaf = leaf.to_local()
             if not name.startswith("blocks."):
                 leaf.normal_(0.0, 0.02, generator=generator)
             elif base in ("ln1", "ln2", "norm", "mix", "D"):
@@ -433,6 +440,11 @@ class LM(nn.Module):
         mask = self._dead_head_mask()
         hd, d = self.cfg.head_dim, self.cfg.d_model
         wo = self.blocks.attn.wo
+        if self.mesh is not None:       # this rank's heads, split over "model"
+            m = self.mesh.mesh_dim_names.index("model")
+            n = mask.numel() // self.mesh.size(m)
+            r = self.mesh.get_local_rank(m)
+            wo, mask = wo.to_local(), mask[r * n:(r + 1) * n]
         wom = wo.reshape(wo.shape[0], -1, hd, d) * mask[None, :, None, None]
         wo.copy_(wom.reshape(wo.shape))
 

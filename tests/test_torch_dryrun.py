@@ -234,8 +234,9 @@ def test_probes_equal_the_direct_count():
 def test_what_is_still_none_is_pinned():
     """What the port's records still leave None: ``compile_s`` in every
     record (nothing is compiled), and the wire bytes of a record without
-    partitioned probes (``run_cell``, ``--no-probes``) and of an MoE
-    cell, whose dispatch has no DTensor strategy yet; each says why."""
+    partitioned probes (``run_cell``, ``--no-probes``), which says why.
+    An MoE cell's probed record is partitioned like any other: its wire
+    bytes and collective term are numbers."""
     over = _smoke("deepseek_moe_16b", n_layers=2)
     moe = dryrun.run_cell_with_probes("deepseek_moe_16b", _cut("decode_32k"),
                                       False, over)
@@ -243,11 +244,14 @@ def test_what_is_still_none_is_pinned():
                             _smoke("hymba_1_5b", n_layers=2))
     for rec in (moe, plain):
         assert rec["status"] == "ok" and rec["compile_s"] is None
-        assert rec["collectives"]["wire_bytes"] is None
-        assert rec["roofline"]["collective_s"] is None
-        assert rec["cost"]["per_device"] == "even_split"
-    assert moe["collectives"]["reason"] == dryrun.NO_MOE_STRATEGY
+    assert plain["collectives"]["wire_bytes"] is None
+    assert plain["roofline"]["collective_s"] is None
+    assert plain["cost"]["per_device"] == "even_split"
     assert plain["collectives"]["reason"] == dryrun.NO_COLLECTIVES
+    assert moe["collectives"]["wire_bytes"] > 0
+    assert moe["roofline"]["collective_s"] > 0
+    assert moe["cost"]["per_device"] == "partitioned"
+    assert not hasattr(dryrun, "NO_MOE_STRATEGY")
 
 
 def _roofline_report():

@@ -14,7 +14,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(script, *args, timeout=300, jax=False):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # one torch thread for the CPU walk, as tests/test_torch_imports.py
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     if jax:
         env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run([sys.executable, os.path.join(ROOT, "examples",

@@ -18,7 +18,11 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 
 
 def _run(code: str) -> str:
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    # one torch thread: the CPU walk gains no wall time from more, and
+    # under a parallel test run its spinning threads oversubscribe the
+    # cores (a guided compile took 4 min of CPU for 52 s of wall alone)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

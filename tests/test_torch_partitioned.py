@@ -21,6 +21,14 @@ collectives compute nothing): only shapes, counts and bytes.
   gradients are reduce-scattered and the parameters all-gathered.
 - A 2x2 tensor-parallel prefill of hymba's smoke config: the port's
   ``by_kind`` beside the reference's, held within a stated ratio.
+- The MoE layer partitioned (expert parallelism over "model", each rank
+  routing its rows' groups): on 1x1 the same counts as unpartitioned
+  under both dispatches; a 4x1 train step's wire bytes in closed form,
+  the all-reduce bytes equal to the reference's HLO; a 2x2 deepseek
+  prefill beside the reference's; ``fsdp_experts`` all-gathering the
+  expert weights over "data"; and, on four real gloo ranks on the CPU,
+  the layer's output, aux loss, every gradient and the dispatch slots
+  equal to one device's (a group spanning the data shards included).
 - No process group is left up after any test.
 """
 import dataclasses
@@ -131,13 +139,22 @@ def _dtensor_local_shape(shape, sp, dm):
     return tuple(local)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# the MoE archs with ``fsdp_experts`` flipped: the expert leaves split
+# over "model" only, and over "model" and the data axes
+FLIPPED = {"deepseek_moe_16b-fsdp_experts": ("deepseek_moe_16b",
+                                             {"fsdp_experts": True}),
+           "llama4_maverick_400b_a17b-no_fsdp_experts": (
+               "llama4_maverick_400b_a17b", {"fsdp_experts": False})}
+
+
+@pytest.mark.parametrize("arch", ARCHS + list(FLIPPED))
 def test_dtensor_local_shapes_equal_shard_shape(arch):
     """Every parameter, AdamW (ZeRO-1) and cache leaf of the widened
     smoke config: DTensor's local shape for ``placements(spec)`` equals
     ``shard_shape`` and jax's ``NamedSharding.shard_shape``, on four
-    meshes."""
-    cfg = _widened(arch)
+    meshes; the MoE archs also with ``fsdp_experts`` flipped."""
+    arch, over = FLIPPED.get(arch, (arch, {}))
+    cfg = _widened(arch, **over)
     for name, (sizes, axes) in MESHES.items():
         mesh = make_mesh(sizes, axes)
         ref_mesh = AbstractMesh(sizes, axes)
@@ -162,6 +179,13 @@ def test_dtensor_local_shapes_equal_shard_shape(arch):
                                                                      key)
                 assert NamedSharding(ref_mesh, PartitionSpec(*sp)) \
                     .shard_shape(tuple(shape)) == want, (name, key)
+    if cfg.n_experts:
+        # the routed experts: E over "model", and their input axis over
+        # the data axes under fsdp_experts
+        sp = param_specs(cfg, mesh)["blocks.moe.w_gate"]
+        data = ("pod", "data") if "pod" in mesh.axis_names else "data"
+        assert sp == (None, "model", data if cfg.fsdp_experts else None,
+                      None)
 
 
 def test_placements_of_a_tuple_entry():
@@ -187,11 +211,16 @@ def _shape(kind, batch=4, seq=64):
     ("hymba_1_5b", "prefill", {"attn_impl": "flash"}),
     ("hymba_1_5b", "decode", {}),
     ("mamba2_370m", "train", {}), ("mamba2_370m", "prefill", {}),
-    ("mamba2_370m", "decode", {})])
+    ("mamba2_370m", "decode", {}),
+    ("deepseek_moe_16b", "train", {}), ("deepseek_moe_16b", "prefill", {}),
+    ("deepseek_moe_16b", "decode", {}),
+    ("deepseek_moe_16b", "train", {"moe_impl": "sort"}),
+    ("deepseek_moe_16b", "prefill", {"moe_impl": "sort"}),
+    ("deepseek_moe_16b", "decode", {"moe_impl": "sort"})])
 def test_partitioned_equals_unpartitioned_on_1x1(arch, kind, over):
     """On a 1x1 mesh rank 0's local program is the whole step: the same
     FLOPs, bytes, temp and output bytes as the unpartitioned trace, and
-    no collective."""
+    no collective (the MoE layer under both dispatches too)."""
     cfg = get_config(arch).smoke().replace(**over)
     mesh = make_mesh((1, 1), ("data", "model"))
     shp = _shape(kind)
@@ -275,6 +304,19 @@ _TRAIN_DP = ("yi_34b", ("train_4x64", 64, 4, "train"), (4, 1),
              {"zero1": False, "dtype": "float32", "scan_layers": False})
 _PREFILL_TP = ("hymba_1_5b", ("prefill_4x64", 64, 4, "prefill"), (2, 2),
                {"scan_layers": False})
+# the MoE smoke model (4 experts, top 2, 2 shared): 4 x 64 tokens in
+# groups of 64, one a data rank; and a 2x2 prefill in groups of 64 and
+# at the default group (512: the 256 tokens are one group that spans
+# both data ranks)
+_MOE_TRAIN_DP = ("deepseek_moe_16b", ("train_4x64", 64, 4, "train"), (4, 1),
+                 {"zero1": False, "dtype": "float32", "scan_layers": False,
+                  "moe_group": 64})
+_MOE_PREFILL_TP = {
+    group: ("deepseek_moe_16b", ("prefill_4x64", 64, 4, "prefill"), (2, 2),
+            {"scan_layers": False, "moe_group": group})
+    for group in (64, 512)}
+_REF_NAMES = ("train_dp", "prefill_tp", "moe_train_dp", "moe_prefill_tp64",
+              "moe_prefill_tp512")
 
 
 @pytest.fixture(scope="module")
@@ -283,12 +325,13 @@ def reference_collectives():
                JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-c", _REF_CELLS,
-         json.dumps([_TRAIN_DP, _PREFILL_TP])],
+         json.dumps([_TRAIN_DP, _PREFILL_TP, _MOE_TRAIN_DP,
+                     _MOE_PREFILL_TP[64], _MOE_PREFILL_TP[512]])],
         env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [json.loads(ln[5:]) for ln in out.stdout.splitlines()
              if ln.startswith("JSON:")]
-    return dict(zip(("train_dp", "prefill_tp"), lines))
+    return dict(zip(_REF_NAMES, lines))
 
 
 def _port(cell):
@@ -319,7 +362,8 @@ def test_zero1_reduce_scatters_gradients():
     """The same cell under ZeRO-1 (the config's default): gradients are
     reduce-scattered onto the data-sharded moments and the parameters
     all-gathered after the update, as the reference constrains them; only
-    scalars are all-reduced."""
+    scalars are all-reduced: the loss's two sums and the gradient norm's
+    sum of squares, once (``adamw._sum_of_squares``)."""
     cfg = get_config("yi_34b").smoke().replace(dtype="float32",
                                                scan_layers=False)
     assert cfg.zero1
@@ -327,7 +371,7 @@ def test_zero1_reduce_scatters_gradients():
                                    make_mesh((4, 1), ("data", "model")))
     kinds = got["collectives"].by_kind
     assert kinds["reduce-scatter"] == kinds["all-gather"] > 0
-    assert kinds["all-reduce"] == 2 * (4 - 1) / 4 * 4 * 4   # four scalars
+    assert kinds["all-reduce"] == 2 * (4 - 1) / 4 * 4 * 3   # three scalars
 
 
 # the port's wire bytes over the reference's on the 2x2 prefill (measured
@@ -348,6 +392,251 @@ def test_tensor_parallel_prefill_by_kind_beside_the_reference(
     assert set(st.by_kind) == {"all-gather", "reduce-scatter", "all-to-all"}
     lo, hi = PREFILL_TP_RATIO
     assert lo < st.wire_bytes / ref["wire_bytes"] < hi
+
+
+# ------------------------------------------------------------------- MoE
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+def test_moe_data_parallel_train_wire_equals_closed_form(
+        impl, reference_collectives, capsys):
+    """deepseek's smoke config in f32 on 4x1, no ZeRO-1, groups of 64
+    tokens (one a data rank, so the dispatch moves nothing): the wire
+    bytes are, in closed form, the all-reduce of every gradient, of the
+    loss's two sums (f32 scalars) and of the aux loss's two sums over
+    the tokens (router probabilities and assignments, [E] f32 each) a
+    layer; their backward adds nothing (a replicated gradient of a
+    partial sum is laid back out for free). The reference's compiled
+    HLO all-reduces the same bytes to the byte; it also all-gathers one
+    [groups, 64, E] f32 tensor a layer (the router's probabilities of
+    every group), which the port keeps local: both printed by kind."""
+    arch, shape, sizes, over = _MOE_TRAIN_DP
+    cfg, got = _port((arch, shape, sizes, dict(over, moe_impl=impl)))
+    g = 4
+    grads = sum(math.prod(s) * dt.itemsize
+                for s, dt in param_shapes(cfg, 1).values())
+    aux = cfg.n_layers * 2 * cfg.n_experts * 4
+    closed = 2 * (g - 1) / g * (grads + 2 * 4 + aux)
+    st = got["collectives"]
+    ref = reference_collectives["moe_train_dp"]
+    with capsys.disabled():
+        print(f"\ndeepseek smoke train 4x64 on 4x1 ({impl}): port "
+              f"{st.by_kind} ({st.count} ops), reference (einsum) "
+              f"{ref['by_kind']} ({ref['count']} ops)")
+    assert set(st.by_kind) == {"all-reduce"}
+    assert st.wire_bytes == closed
+    assert st.by_kind["all-reduce"] == ref["by_kind"]["all-reduce"]
+    assert set(ref["by_kind"]) == {"all-reduce", "all-gather"}
+    assert ref["by_kind"]["all-gather"] == cfg.n_layers * (g - 1) / g * (
+        4 * 64 * cfg.n_experts * 4)
+
+
+# the port's wire bytes over the reference's on the 2x2 MoE prefill
+# (measured 0.095 in groups of 64 and 0.132 at the default group: the
+# reference gathers blockwise attention's f32 blocks as in the hymba
+# cell and all-reduces its expert outputs in f32 over "model"; the port
+# reduce-scatters the bf16 sum of each block's partial outputs; see
+# PERF.md)
+MOE_PREFILL_TP_RATIO = (0.05, 0.5)
+
+
+@pytest.mark.parametrize("group", [64, 512])
+def test_moe_tensor_parallel_prefill_by_kind_beside_the_reference(
+        group, reference_collectives, capsys):
+    """deepseek's smoke prefill of 4 x 64 tokens on 2x2: two experts a
+    rank, the groups inside a data rank (64) or spanning both (512, the
+    tokens all-gathered over "data" a layer)."""
+    _, got = _port(_MOE_PREFILL_TP[group])
+    ref = reference_collectives[f"moe_prefill_tp{group}"]
+    st = got["collectives"]
+    with capsys.disabled():
+        print(f"\ndeepseek smoke prefill 4x64 on 2x2, groups of {group}: "
+              f"port {st.by_kind} ({st.count} ops), reference "
+              f"{ref['by_kind']} ({ref['count']} ops)")
+    assert {"all-gather", "reduce-scatter"} <= set(st.by_kind)
+    lo, hi = MOE_PREFILL_TP_RATIO
+    assert lo < st.wire_bytes / ref["wire_bytes"] < hi
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_fsdp_experts_gathers_the_expert_weights_over_data(kind):
+    """deepseek's smoke config on 2x2 (bf16, no ZeRO-1) with and without
+    ``fsdp_experts``: the expert weights, split over "data" too, are
+    all-gathered over it at use, three a layer, and in training their
+    gradients reduce-scattered back a layer, where without it the train
+    step all-reduces each stacked gradient leaf once; the gradient
+    norm's sum of squares, now split over "data" too, adds one f32
+    scalar's all-reduce. Nothing else changes."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    base = get_config("deepseek_moe_16b").smoke().replace(
+        scan_layers=False, zero1=False, moe_group=64)
+    got = {fsdp: dryrun.trace_partitioned(
+        base.replace(fsdp_experts=fsdp), _shape(kind), mesh)["collectives"]
+        for fsdp in (False, True)}
+    g = 2
+    leaf = base.n_experts // 2 * base.d_model * base.d_ff * 2   # bf16
+    n = 3 * base.n_layers
+    diff = {k: got[True].by_kind.get(k, 0) - got[False].by_kind.get(k, 0)
+            for k in {**got[True].by_kind, **got[False].by_kind}}
+    want = {"all-gather": n * (g - 1) / g * leaf, "reduce-scatter": 0,
+            "all-reduce": 0, "all-to-all": 0}
+    ops = n
+    if kind == "train":
+        # the gradient of a shard [E/2, d/2, f]: (g-1) x its bytes,
+        # against 2 (g-1)/g x the unsplit leaf's
+        want["reduce-scatter"] = n * (g - 1) * leaf / g
+        want["all-reduce"] = -n * 2 * (g - 1) / g * leaf + 2 * (g - 1) / g * 4
+        ops = 2 * n - 3 + 1
+    assert diff == want
+    assert got[True].count - got[False].count == ops
+
+
+# four gloo ranks on the CPU, each running ``moe_layer`` on its shards
+# of one set of seeded weights and tokens and on the whole of them: the
+# partitioned output, aux loss and gradients against one device's, and
+# every rank's dispatch slots (each slot's expert and whether it fits
+# the expert's capacity, over all experts, as the dispatch computes them
+# before it keeps its rank's experts); rank 0 writes the results
+_GLOO_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import repro_torch
+repro_torch.set_default_device("cpu")
+torch.set_num_threads(1)
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import device_mesh, make_mesh
+from repro_torch.models import layers
+from repro_torch.models.model import param_specs
+from repro_torch.models.sharding import placements
+
+rank, world, port, out_path = (int(sys.argv[1]), int(sys.argv[2]),
+                               sys.argv[3], sys.argv[4])
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=world, rank=rank)
+rng = np.random.default_rng(0)
+seen = []
+local_experts = layers._local_experts
+def spy(keep, idx, lo, el, e):
+    seen.append([idx.tolist(), keep.tolist()])
+    return local_experts(keep, idx, lo, el, e)
+layers._local_experts = spy
+results = []
+for sizes, over in json.loads(sys.argv[5]):
+    cfg = get_config("deepseek_moe_16b").smoke().replace(
+        dtype="float32", capacity_factor=0.5, **over)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    fs = cfg.n_shared_experts * f
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+              "w_down": (e, f, d), "shared.w_gate": (d, fs),
+              "shared.w_up": (d, fs), "shared.w_down": (fs, d)}
+    whole = {k: torch.tensor(rng.normal(0, 0.3 if k == "router" else 0.05,
+                                        s), dtype=torch.float32)
+             for k, s in shapes.items()}
+    x = torch.tensor(rng.normal(0, 1, (4, 64, d)), dtype=torch.float32)
+    gout = torch.tensor(rng.normal(0, 1, (4, 64, d)), dtype=torch.float32)
+
+    def tree(flat):
+        p = {k: v for k, v in flat.items() if "." not in k}
+        p["shared"] = {k[7:]: v for k, v in flat.items() if "." in k}
+        return p
+
+    seen.clear()
+    one = {k: v.clone().requires_grad_() for k, v in whole.items()}
+    x1 = x.clone().requires_grad_()
+    o1, a1 = layers.moe_layer(cfg, tree(one), x1)
+    ((o1 * gout).sum() + 0.37 * a1).backward()
+    slots1 = list(seen)
+    mesh = make_mesh(tuple(sizes), ("data", "model"))
+    dm = device_mesh(mesh, "cpu")
+    specs = param_specs(cfg, mesh)
+    part = {k: distribute_tensor(
+        v, dm, placements(specs["blocks.moe." + k][1:], dm),
+        src_data_rank=None).detach().requires_grad_()
+        for k, v in whole.items()}
+    xp = distribute_tensor(x, dm, placements(("data", None, None), dm),
+                           src_data_rank=None).detach().requires_grad_()
+    seen.clear()
+    op, ap = layers.moe_layer(cfg, tree(part), xp)
+    mine = list(seen)
+    out, aux = op.full_tensor(), ap.full_tensor()
+    ((out * gout).sum() + 0.37 * aux).backward()
+    res = {"out": float((out - o1).abs().max()),
+           "aux": [float(aux), float(a1)],
+           "grads": {k: float((part[k].grad.full_tensor()
+                               - one[k].grad).abs().max())
+                     for k in whole} | {
+               "x": float((xp.grad.full_tensor() - x1.grad).abs().max())},
+           "slots1": slots1}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    res["slots"] = every
+    results.append(res)
+if rank == 0:
+    json.dump(results, open(out_path, "w"))
+dist.destroy_process_group()
+"""
+# (mesh, overrides): data only, in groups of 64 (one a rank) and in one
+# group of 256 that spans the four data ranks, under both dispatches;
+# 2x2 with two experts a rank, in groups of 64, at the default group,
+# and with fsdp_experts
+GLOO_CASES = {
+    "4x1-group64": ((4, 1), {"moe_group": 64}),
+    "4x1-spanning": ((4, 1), {}),
+    "4x1-spanning-sort": ((4, 1), {"moe_impl": "sort"}),
+    "2x2-group64": ((2, 2), {"moe_group": 64}),
+    "2x2-spanning-sort": ((2, 2), {"moe_impl": "sort"}),
+    "2x2-group64-fsdp": ((2, 2), {"moe_group": 64, "fsdp_experts": True}),
+}
+
+
+@pytest.fixture(scope="module")
+def gloo_moe(tmp_path_factory):
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = str(tmp_path_factory.mktemp("gloo") / "moe.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cases = json.dumps(list(GLOO_CASES.values()))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GLOO_WORKER, str(r), "4", str(port), out,
+         cases], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(4)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), errs[0][-2000:]
+    return dict(zip(GLOO_CASES, json.load(open(out))))
+
+
+@pytest.mark.parametrize("case", list(GLOO_CASES))
+def test_moe_layer_on_gloo_ranks_equals_one_device(case, gloo_moe):
+    """Each rank routes whole groups (its own, or every group where one
+    spans the data ranks), so the dispatch slots, hence the drops, are
+    one device's bit for bit, and so is the aux loss; the output and
+    every gradient (tokens, router, experts, shared experts) agree in
+    f32 to 1e-5. A capacity factor of 0.5 makes the drops many."""
+    (dp, tp), _ = GLOO_CASES[case]
+    res = gloo_moe[case]
+    (one,) = res["slots1"]
+    keep = str(one[1])
+    assert 0 < keep.count("False") and 0 < keep.count("True")
+    spans = "spanning" in case
+    for rank, mine in enumerate(res["slots"]):
+        (got,) = mine
+        want = one if spans else [
+            part[len(part) // dp * (rank // tp):
+                 len(part) // dp * (rank // tp + 1)] for part in one]
+        assert got == want, rank
+    assert res["aux"][0] == res["aux"][1]
+    assert res["out"] < 1e-5
+    assert max(res["grads"].values()) < 1e-5, res["grads"]
 
 
 # ------------------------------------------------------------- records
@@ -378,16 +667,31 @@ def test_probe_record_is_partitioned():
     json.dumps(rec)
 
 
-def test_moe_probe_record_keeps_the_even_split():
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_moe_probe_record_is_partitioned(kind):
+    """deepseek's widened smoke config (16 experts, one a rank) on
+    16x16, cut to 2 layers: a partitioned record with numeric wire bytes
+    and collective term. Prefill at batch 16 holds 2 groups of 512
+    tokens, which span the 16 data ranks (the tokens are all-gathered
+    over "data"); decode at batch 16 one group of 16."""
     over = dataclasses.asdict(_widened("deepseek_moe_16b", n_layers=2))
-    rec = dryrun.run_cell_with_probes("deepseek_moe_16b", _shape("decode"),
-                                      False, over)
+    rec = dryrun.run_cell_with_probes("deepseek_moe_16b",
+                                      _shape(kind, batch=16), False, over)
     assert rec["status"] == "ok"
-    assert rec["cost"]["per_device"] == "even_split"
-    assert rec["collectives"] == {"wire_bytes": None,
-                                  "reason": dryrun.NO_MOE_STRATEGY}
-    assert rec["cost_corrected"]["wire_bytes"] is None
-    assert rec["roofline"]["collective_s"] is None
+    assert rec["cost"]["per_device"] == "partitioned"
+    assert rec["memory"]["per_device"] == {"argument_bytes": "exact",
+                                           "output_bytes": "partitioned",
+                                           "temp_bytes": "partitioned"}
+    col, cc = rec["collectives"], rec["cost_corrected"]
+    assert col["wire_bytes"] == cc["wire_bytes"] > 0
+    assert set(col) == {"wire_bytes", "count", "by_kind", "top"}
+    assert rec["roofline"]["collective_s"] == cc["wire_bytes"] / \
+        roofline.LINK_BW
+    # the layer's tokens all-gathered over the 16 data ranks: [16, s, 64]
+    labels = [lab for lab, _ in col["top"]]
+    assert any(lab.startswith("all-gather g=16 bfloat16[16, ")
+               for lab in labels) or kind == "prefill", labels
+    json.dumps(rec)
 
 
 def test_cli_probes_the_multipod_cell(tmp_path):

@@ -361,7 +361,9 @@ print(",".join(caught))
 
 
 def test_structured_errors_survive_python_O():
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    # one torch thread for the CPU walk, as tests/test_torch_imports.py
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-O", "-c", _OPT_SMOKE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
