@@ -21,8 +21,9 @@ of 4, with the default solver and with the GPU walk as the solver (one
 route).
 
 Then the mapping campaign (``campaign_phase``, after the service tier):
-``repro_torch.launch.campaign`` at its ``--quick`` sizes with its gates
-(shards spawned on cuda whose cells the default solver, host CDCL, maps;
+``repro_torch.launch.campaign`` at its ``--quick`` corpus with its gates
+(``CAMPAIGN_QUICK``: shards spawned on cuda whose cells the default
+solver maps on the host, z3 where it imports, else CDCL;
 the guide trained on cuda:0; the 33-cell guided == unguided suite gate),
 the guide's training timed on the card, both walk kernels held against
 their plain versions on every window the guided walks receive, and sha,
@@ -137,16 +138,25 @@ from repro_torch.launch import roofline  # noqa: E402
 EXPECTED_II_4X4 = {"sha": 7, "sha2": 8, "gsm": 6, "patricia": None,
                    "bitcount": 6, "backprop": 6, "nw": 5, "srand": 3,
                    "hotspot": 7, "basicmath": 8, "stringsearch": 5}
+# the lowest II at which each kernel's formula is SAT at 4x4 (every II
+# below it UNSAT), whichever complete solver decides it; the final II
+# can lie above it where the solver's model fails register allocation
+# (patricia's CDCL models do at every II from 9 to its last)
+EXPECTED_SAT_II_4X4 = dict(EXPECTED_II_4X4, patricia=9)
 WALKSAT_KERNELS = ("sha", "gsm", "nw")
 # the service phase: benchmarks/serve_load.py's --quick corpus (3x3, two
 # near variants each), its storm size, and each request's deadline
 SERVE_LOAD_KERNELS = ("sha", "gsm", "srand", "bitcount", "nw")
 STORM_CLIENTS = 1000
 SERVICE_DEADLINE_S = 120.0
-# the campaign phase: repro_torch.launch.campaign --quick's sizes (the
-# reference's CI-sized run, at least 200 cells)
-CAMPAIGN_QUICK = dict(seed=0, workers=2, n_random=64, n_mutants=40,
-                      fabrics="2x2,3x3,4x4", eval_cells=40, sweep_width=4)
+# the campaign phase: repro_torch.launch.campaign --quick's corpus and
+# fabrics (the reference's CI-sized run, at least 200 cells), its cells on
+# "auto" (z3 where it imports). Two cuts: six shards, not two, and 20
+# held-out cells, not 40. On z3 at --quick's own sizes the campaign took
+# 368.8 s (H100 80GB HBM3, 700.00 W): 204.6 s to map the 306 cells on
+# two shards, 106.8 s to map the 40 held-out cells twice in-process
+CAMPAIGN_QUICK = dict(seed=0, workers=6, n_random=64, n_mutants=40,
+                      fabrics="2x2,3x3,4x4", eval_cells=20, sweep_width=4)
 HBM_BYTES_PER_S = roofline.HBM_BW        # H100 SXM device memory
 INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit rate
 F32_FLOPS = 67e12                # H100 SXM non-tensor f32 rate
@@ -208,9 +218,6 @@ BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 DRY_SWEEP = ((False, None),
              (True, (("mamba2_370m", "decode_32k"),
                      ("llama4_maverick_400b_a17b", "train_4k"))))
-# the cells run with the partitioned L=1/L=2 probes: every pod cell, and
-# of the multi-pod ones the reference's own slow cell
-DRY_PROBED_MULTIPOD = (("mamba2_370m", "decode_32k"),)
 DRY_WORKERS = 8
 DRY_ARCH = "hymba_1_5b"
 DRY_CELLS = (("prefill", 2048, 4, 3), ("decode", 2048, 4, 5),
@@ -278,6 +285,11 @@ def environment(torch):
         triton_version = triton.__version__
     except ImportError:
         triton_version = None
+    try:
+        import z3
+        z3_version = z3.get_version_string()
+    except ImportError:
+        z3_version = None
     import networkx
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -287,7 +299,7 @@ def environment(torch):
     emit("environment", python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc[-1], triton=triton_version,
-         networkx=networkx.__version__, nvidia_smi=smi,
+         networkx=networkx.__version__, z3=z3_version, nvidia_smi=smi,
          device=torch.cuda.get_device_name(0))
     return smi
 
@@ -771,22 +783,33 @@ def main_path(torch):
     from repro_torch.core.sat import portfolio
     from repro_torch.kernels import clause_eval
     from repro_torch.kernels.clause_eval import true_counts, true_counts_window
+    from repro_torch.core.sat import _has_z3, resolve_method
     from repro_torch.kernels.flip_update import (flip_update, reset_counts,
                                                  walk_chunk)
     if repro_torch.get_default_device() != "cuda":
         raise AssertionError("the port must default to cuda")
+    # the complete backend "auto" resolves to here: z3 where it imports
+    # (the paper's solver), else the in-repo CDCL
+    complete = resolve_method("auto")
+    if complete != ("z3" if _has_z3() else "cdcl"):
+        raise AssertionError(f"'auto' resolved to {complete!r}")
     clause_eval.reset_counts()
     reset_counts()
+    auto_vias = set()
     for name in suite.names():
         t0 = time.perf_counter()
         res = compile(MapRequest(dfg=suite.get(name), arch="4x4",
                                  sweep_width=4))
-        got = res.ii if res.success else None
-        if got != EXPECTED_II_4X4[name] or res.timed_out:
-            raise AssertionError(f"{name}: II {got}, expected "
-                                 f"{EXPECTED_II_4X4[name]}")
-        emit("compile", kernel=name, solver="auto", ii=got, mii=res.mii,
+        got = _check_suite_ii(name, res, complete)
+        vias = sorted({a.via for a in res.attempts})
+        auto_vias.update(vias)
+        emit("compile", kernel=name, solver="auto", complete=complete,
+             ii=got, mii=res.mii, vias=vias,
              seconds=time.perf_counter() - t0)
+    if complete not in auto_vias:
+        raise AssertionError(f"no attempt of the 'auto' compiles ran on "
+                             f"{complete}: {sorted(auto_vias)}")
+    emit("z3_parity", complete=complete, verdicts=z3_parity())
     walk_s = 0.0
     walk_steps = 0
     for name in WALKSAT_KERNELS:
@@ -820,15 +843,98 @@ def main_path(torch):
         raise AssertionError(f"{portfolio.racer_failures()} walk racer(s) "
                              f"failed")
     emit("main_path", launches=launches, racer_failures=0,
+         auto_complete_backend=complete, z3_importable=_has_z3(),
+         auto_vias=sorted(auto_vias),
          clause_eval_window_route_launches=ce_routes,
          walk_chunk_route_launches=walk_chunk.route_launches,
          walk_chunk_steps=walk_chunk.steps,
          walk_seconds=walk_s, walk_steps=walk_steps,
          steps_per_s=walk_steps / walk_s,
          flips_per_s=walk_steps * 4 * 24 / walk_s)
-    return launches, {"steps": walk_chunk.steps,
-                      "route_launches": dict(walk_chunk.route_launches),
-                      "clause_eval_route_launches": ce_routes}
+    walk = {"steps": walk_chunk.steps,
+            "route_launches": dict(walk_chunk.route_launches),
+            "clause_eval_route_launches": ce_routes}
+    if complete != "cdcl":
+        # the reference's IIs are its CDCL's: the suite again on CDCL,
+        # after the main path's counts were read
+        t0 = time.perf_counter()
+        iis = {name: _check_suite_ii(name, compile(MapRequest(
+            dfg=suite.get(name), arch="4x4", sweep_width=4,
+            solver="cdcl")), "cdcl") for name in suite.names()}
+        emit("compile_cdcl", iis=iis, seconds=time.perf_counter() - t0)
+    return launches, walk
+
+
+def z3_parity(seeds=range(12)):
+    """Where z3 imports: the port's ``Z3IncrementalSolver`` against its
+    CDCL on seeded random 3-SAT formulas around the threshold, in two
+    layers and under assumptions: the same verdicts, every model a model
+    of the formula and the assumptions, every core a subset of the
+    assumptions that CDCL refutes too. Returns the verdict counts, or
+    None without z3."""
+    import numpy as np
+    from repro_torch.core.sat import _has_z3
+    from repro_torch.core.sat.cdcl import CDCLSolver
+    if not _has_z3():
+        return None
+    from repro_torch.core.sat.z3_backend import Z3IncrementalSolver
+    seen = {}
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(20, 60))
+        rows = [tuple(int(v) * int(sg) for v, sg in zip(
+            rng.choice(n, 3, replace=False) + 1, rng.integers(0, 2, 3) * 2 - 1))
+            for _ in range(int(rng.integers(4 * n, 8 * n)))]
+        z3s, cdcl = Z3IncrementalSolver(), CDCLSolver()
+        half = len(rows) // 2
+        for live, new in ((rows[:half], rows[:half]), (rows, rows[half:])):
+            z3s.add_clauses(new, n_vars=n)
+            cdcl.add_clauses(new, n_vars=n)
+            for k in (0, 4, 4):
+                vs = rng.choice(n, k, replace=False) + 1
+                lits = [int(v) * int(sg) for v, sg in
+                        zip(vs, rng.integers(0, 2, k) * 2 - 1)]
+                zs, zm = z3s.solve(assumptions=lits)
+                cs, _ = cdcl.solve(assumptions=lits)
+                if zs != cs:
+                    raise AssertionError(f"z3 {zs} against CDCL {cs}, "
+                                         f"seed {seed}")
+                if zs == "SAT" and not all(
+                        any(zm[abs(l) - 1] == (l > 0) for l in cl)
+                        for cl in live + [(l,) for l in lits]):
+                    raise AssertionError(f"z3's model fails, seed {seed}")
+                if zs == "UNSAT":
+                    core = z3s.last_core
+                    check = CDCLSolver()
+                    check.add_clauses(live, n_vars=n)
+                    if not set(core) <= set(lits) or \
+                            check.solve(assumptions=core)[0] != "UNSAT":
+                        raise AssertionError(f"z3's core {core} of {lits} "
+                                             f"does not refute, seed {seed}")
+                key = zs if zs == "SAT" else \
+                    "UNSAT/" + ("global" if z3s.last_core == [] else "core")
+                seen[key] = seen.get(key, 0) + 1
+    return seen
+
+
+def _check_suite_ii(name, res, complete):
+    """A suite compile at 4x4 against the reference: on CDCL exactly its
+    II (``EXPECTED_II_4X4``); on any complete backend its verdicts (every
+    II below ``EXPECTED_SAT_II_4X4`` tried is UNSAT, that II SAT) and a
+    final II, if any, not below it. Returns the final II or None."""
+    got = res.ii if res.success else None
+    floor = EXPECTED_SAT_II_4X4[name]
+    sat = [a.ii for a in res.attempts if a.status == "SAT"]
+    below = [a for a in res.attempts if a.ii < floor]
+    if res.timed_out or not sat or min(sat) != floor or \
+            any(a.status != "UNSAT" for a in below) or \
+            (got is not None and got < floor) or \
+            (complete == "cdcl" and got != EXPECTED_II_4X4[name]):
+        raise AssertionError(
+            f"{name} on {complete}: II {got} (expected "
+            f"{EXPECTED_II_4X4[name]} on CDCL, SAT from {floor}), "
+            f"attempts {[(a.ii, a.status) for a in res.attempts]}")
+    return got
 
 
 def _close(got, want, atol, rtol):
@@ -1505,10 +1611,11 @@ def guided_window_parity(torch, reqs):
 def campaign_phase(torch, smi):
     """The mapping campaign and learned II guidance on the card, in a
     process that initialised CUDA long before: ``repro_torch.launch.
-    campaign.run`` at the reference's ``--quick`` sizes (corpus, two
-    shards spawned on cuda whose cells the default solver maps with host
-    CDCL, the dataset, the guide trained on cuda:0, the held-out attempts
-    comparison and the 33-cell suite gate) with ``check_gates == []``;
+    campaign.run`` at ``CAMPAIGN_QUICK`` (the reference's ``--quick``
+    corpus, six shards spawned on cuda whose cells the default solver
+    maps on the host (z3 where it imports, else CDCL), the dataset, the
+    guide trained on cuda:0, the held-out attempts comparison and the
+    33-cell suite gate) with ``check_gates == []``;
     ``train_guide`` again on the dataset, its host wall beside its device
     time (CUDA events around the call, the kernels' busy time from
     torch.profiler); clause_eval and walk_chunk against their plain
@@ -1519,8 +1626,8 @@ def campaign_phase(torch, smi):
     held above), then with an unresolvable guide name (unguided); and
     the saved ``.npz`` read back by the numpy guide, suggesting what the
     live guide suggests on every suite cell. The campaign's timings are
-    host-bound (CDCL in the shards). Returns the walk kernels' launch
-    counts of the guided walk."""
+    host-bound (the solver in the shards). Returns the walk kernels'
+    launch counts of the guided walk."""
     import shutil
     from repro_torch import MapRequest, compile
     from repro_torch.core import suite
@@ -1537,7 +1644,7 @@ def campaign_phase(torch, smi):
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
 
-    # -- the campaign at the reference's --quick sizes ---------------------
+    # -- the campaign at CAMPAIGN_QUICK -------------------------------------
     t0 = time.perf_counter()
     summary = campaign.run(out=str(base), **CAMPAIGN_QUICK)
     run_s = time.perf_counter() - t0
@@ -2401,10 +2508,10 @@ def train_phase(torch, smi):
 def _dry_cell(arch, shape, multi_pod):
     """One sweep cell, in a worker process: as the dry run's CLI runs it,
     with the partitioned L=1/L=2 probes on the pod mesh and on the
-    multi-pod cells of ``DRY_PROBED_MULTIPOD``."""
+    multi-pod cells of ``dryrun.PROBED_MULTIPOD``."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
-    probed = not multi_pod or (arch, shape) in DRY_PROBED_MULTIPOD
+    probed = not multi_pod or (arch, shape) in dryrun.PROBED_MULTIPOD
     run = dryrun.run_cell_with_probes if probed else dryrun.run_cell
     rec = run(arch, shape, multi_pod)
     rec["wall_s"] = time.perf_counter() - t0
@@ -2693,17 +2800,24 @@ def dryrun_phase(torch, smi):
 
 def partitioned_sweep_gates(smi, cells, recs):
     """The sweep's partitioned records: every ``ok`` cell probed on its
-    mesh (the pod mesh, ``DRY_PROBED_MULTIPOD``), the MoE cells included,
+    mesh (the pod mesh, ``dryrun.PROBED_MULTIPOD``), the MoE cells included,
     has a numeric ``collective_s`` and ``wire_bytes`` and per-device cost
-    and temp marked ``"partitioned"``. Prints each probed cell's GiB per
+    and temp marked ``"partitioned"``, and its collectives (wire bytes,
+    op count, wire bytes by kind) equal, exactly, those that the committed
+    ``repro_torch/launch/collective_counts.json`` holds for the cell (the
+    count of another torch version: the dry run's answer must not depend
+    on the torch installed); each cell that differs is printed on a line
+    of its own before the phase fails. Prints each probed cell's GiB per
     device, roofline terms, wire bytes and kinds."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import roofline
-    rows, bad, moe = [], [], []
+    from repro_torch.launch import dryrun, roofline
+    with open(dryrun.COUNTS_FILE) as f:
+        committed = json.load(f)
+    rows, bad, moe, differ, seen = [], [], [], [], set()
     for (arch, shape, mp), rec in zip(cells, recs):
         if rec.get("status") != "ok":
             continue
-        if mp and (arch, shape) not in DRY_PROBED_MULTIPOD:
+        if mp and (arch, shape) not in dryrun.PROBED_MULTIPOD:
             continue
         key = f"{arch}/{shape}/{rec['mesh']}"
         col, rf = rec["collectives"], rec["roofline"]
@@ -2717,14 +2831,28 @@ def partitioned_sweep_gates(smi, cells, recs):
             bad.append((key, col.get("wire_bytes"), rf.get("collective_s"),
                         rec["cost"]["per_device"]))
             continue
+        seen.add(key)
+        mine = {k: col[k] for k in ("wire_bytes", "count", "by_kind")}
+        want = committed["cells"].get(key)
+        if mine != want:
+            differ.append(key)
+            emit("dryrun_partitioned_differs", cell=key, card=mine,
+                 committed=want, committed_torch=committed["torch"])
         rows.append([key, rec["memory"]["total_bytes"] / 2 ** 30,
                      rf["compute_s"], rf["memory_s"], rf["collective_s"],
                      rf["bottleneck"], col["wire_bytes"], col["count"],
                      col["by_kind"], rec["useful_flop_ratio"]])
     if bad:
         raise AssertionError(f"partitioned sweep: {bad[:4]}")
+    missing = sorted(set(committed["cells"]) - seen)
+    if differ or missing:
+        raise AssertionError(f"partitioned sweep: {len(differ)} cell(s) "
+                             f"differ from the committed counts (torch "
+                             f"{committed['torch']}): {differ}; committed "
+                             f"but not probed here: {missing}")
     emit("dryrun_partitioned_sweep", nvidia_smi=smi, probed=len(rows),
-         moe_cells=moe,
+         moe_cells=moe, equal_to_committed=len(seen),
+         committed_torch=committed["torch"],
          columns=["cell", "GiB_per_device", "compute_s", "memory_s",
                   "collective_s", "bottleneck", "wire_bytes",
                   "collective_count", "by_kind", "useful_flop_ratio"],
@@ -2947,21 +3075,29 @@ def examples_phase(smi):
                                 if ln.startswith("mapped at")],
            "map_torch_loop": [" ".join(ln.split()) for ln in
                               lines["map_torch_loop"] if "II(" in ln]}
+    from repro_torch.core.sat import resolve_method
+    complete = resolve_method("auto")
     if iis != EXAMPLE_IIS:
-        raise AssertionError(f"example IIs {iis}, expected {EXAMPLE_IIS}")
+        raise AssertionError(f"example IIs {iis} on {complete}, expected "
+                             f"{EXAMPLE_IIS}")
     losses = [float(ln.split("loss=")[1].split()[0])
               for ln in lines["train_lm_torch"] if ln.startswith("step ")]
     if len(losses) < 2 or not all(map(math.isfinite, losses)):
         raise AssertionError(f"train_lm_torch losses {losses}")
     emit("examples", nvidia_smi=smi, wall_s=wall,
          seconds={n: o[3] for n, o in out.items()}, iis=iis,
+         complete_backend=complete,
          train_losses=losses,
          portfolio=lines["portfolio_mapper_torch"][-4:],
          portfolio_wall_s=out["portfolio_mapper_torch"][3])
 
 
 def main() -> int:
+    import faulthandler
     import torch
+    # a crash in native code (a kernel's host side, z3) names every
+    # thread's Python stack
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "needs a CUDA card", file=sys.stderr)

@@ -6,7 +6,7 @@ with the JAX package's jaxpr frontend).
     PYTHONPATH=src python examples/map_torch_loop.py [--cgra 4x4] [--device cpu]
 
 ``--device`` (``cuda`` by default) is where a racing walk would run; the
-default solver here is the host CDCL.
+default solver ("auto") is z3 where it imports, else the host CDCL.
 """
 import argparse
 import os

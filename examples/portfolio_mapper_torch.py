@@ -1,12 +1,12 @@
 """The mapper portfolio on the GPU: solve a batch of loop-mapping problems
 with the port's probSAT walk on the card (``walk_chunk``) and the complete
-CDCL solver as the fallback, as ``examples/portfolio_mapper.py`` does with
-the JAX package's chains.
+solver as the fallback (z3 where it imports, else CDCL), as
+``examples/portfolio_mapper.py`` does with the JAX package's chains.
 
     PYTHONPATH=src python examples/portfolio_mapper_torch.py [--device cpu]
 
 Slow by design: the portfolio walks its full budget on every UNSAT II
-before the CDCL fallback proves it, about a minute a kernel.
+before the complete fallback proves it, about a minute a kernel.
 """
 import argparse
 import os

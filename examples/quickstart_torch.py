@@ -8,7 +8,7 @@ Builds the paper's running example DFG (Fig. 2a), walks the Fig. 3 loop
 (KMS -> CNF -> SAT -> register allocation), prints the mapping as
 prolog/kernel/epilog tables, and verifies it against sequential execution.
 ``--device`` (``cuda`` by default) is where a racing walk would run; the
-default solver here is the host CDCL.
+default solver ("auto") is z3 where it imports, else the host CDCL.
 """
 import argparse
 import os

@@ -3,12 +3,12 @@
 ``solve(cnf, method=...)`` dispatches to:
   * "cdcl"    — our own CDCL (watched literals, VSIDS, Luby restarts,
                 phase saving). Always available; host CPU.
+  * "z3"      — Z3 (the paper's solver), when importable.
   * "walksat" — batched probSAT in PyTorch on the package's device (see
                 ``repro_torch.device``); incomplete: returns UNKNOWN
                 instead of UNSAT.
   * "portfolio" — walksat first, the complete backend as the fallback.
-  * "auto"    — the complete backend: cdcl. The z3 backend of the JAX
-                package is not ported yet; asking for "z3" raises.
+  * "auto"    — z3 if available else cdcl.
 """
 from __future__ import annotations
 
@@ -22,10 +22,7 @@ SAT, UNSAT, UNKNOWN = "SAT", "UNSAT", "UNKNOWN"
 def resolve_method(method: str) -> str:
     """Resolve "auto" to the concrete complete backend used on this host."""
     if method == "auto":
-        return "cdcl"
-    if method == "z3":
-        raise NotImplementedError("the z3 backend is not ported to "
-                                  "repro_torch; use 'cdcl' or 'auto'")
+        return "z3" if _has_z3() else "cdcl"
     return method
 
 
@@ -39,6 +36,9 @@ def solve(cnf: CNF, method: str = "auto", *, max_conflicts: Optional[int] = None
         # and identically across every backend
         return UNSAT, None
     method = resolve_method(method)
+    if method == "z3":
+        from .z3_backend import solve_z3
+        return solve_z3(cnf, stop=stop)
     if method == "cdcl":
         from .cdcl import CDCLSolver
         return CDCLSolver(cnf).solve(max_conflicts=max_conflicts,
@@ -51,3 +51,11 @@ def solve(cnf: CNF, method: str = "auto", *, max_conflicts: Optional[int] = None
         from .portfolio import solve_portfolio
         return solve_portfolio(cnf, seed=seed, stop=stop)
     raise ValueError(f"unknown SAT method {method!r}")
+
+
+def _has_z3() -> bool:
+    try:
+        import z3  # noqa: F401
+        return True
+    except ImportError:
+        return False

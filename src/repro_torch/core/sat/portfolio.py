@@ -18,8 +18,9 @@ solves them concurrently —
 
   * the complete backend runs on every candidate, lowest II first — our
     CDCL in a persistent fork-started process pool (real parallelism for
-    the UNSAT proofs; CPython threads would serialise on the GIL), or on a
-    thread pool where the process pool is unavailable;
+    the UNSAT proofs; CPython threads would serialise on the GIL), z3 (which
+    releases the GIL inside check()) on a thread pool when importable, and
+    CDCL on the thread pool where the process pool is unavailable;
   * one staged racer thread runs the *batched* WalkSAT
     (``solve_walksat_window``), which walks restarts of all candidates
     together on the clause tensors, so the GPU leg certifies hard SAT
@@ -55,7 +56,7 @@ import numpy as np
 # the parent initialised CUDA must never touch CUDA again. Keeping this
 # module (and cdcl.solve_arena_worker's import closure) torch-free keeps
 # the forked workers clean; only the walksat/portfolio legs — which the
-# cdcl worker paths never enter — pay the deferred import.
+# cdcl/z3 worker paths never enter — pay the deferred import.
 
 from ..cnf import CNF
 
@@ -64,7 +65,8 @@ CANCELLED = "CANCELLED"
 # ------------------------------------------------------------- process pool
 # CPython's GIL serialises the pure-Python CDCL, so concurrent UNSAT proofs
 # inside one process gain nothing from threads. The window solver therefore
-# runs the CDCL leg in a small persistent process pool. Fork context: spawn
+# runs the CDCL leg in a small persistent process pool; z3 releases the GIL
+# and stays on threads. Fork context: spawn
 # would re-execute unguarded parent scripts' module level in every worker,
 # and the workers only ever run the dependency-free CDCL (never torch or
 # CUDA), which is fork-safe. The
@@ -178,7 +180,7 @@ def solve_portfolio(cnf: CNF, *, seed: int = 0, steps: int = 8192,
         cnf, seed=seed, steps=steps, batch=chains_per_device, stop=stop)
     if status == SAT:
         return status, model
-    # complete fallback (our CDCL)
+    # complete fallback (z3 if available, else our CDCL)
     return solve_any(cnf, method="auto", stop=stop)
 
 
@@ -208,7 +210,7 @@ class SolverSession:
 
     One layered formula + one live complete backend cover every candidate
     II of a sweep: ``solve_complete(ii)`` is ``solve(assumptions=[sel_ii])``
-    on the persistent solver (our CDCL's learned clauses,
+    on the persistent solver (z3's lemmas / our CDCL's learned clauses,
     activities, and phases all survive the II bump because delta layers are
     guarded, never retracted), and ``solve_ii(ii)`` additionally honours
     the incomplete/portfolio method semantics with WalkSAT warm-started
@@ -247,6 +249,7 @@ class SolverSession:
             self.walksat_batch = walksat_batch or 64
         self.max_learnt = max_learnt
         self._cdcl = None
+        self._z3 = None
         self._synced = 0                      # clauses pushed to the backend
         self.best_assign: Optional[List[bool]] = None   # layout-var space
         self.best_quality: Optional[int] = None         # unsat count (0=model)
@@ -338,6 +341,11 @@ class SolverSession:
             return packed, host, False
 
     def _backend(self):
+        if self.complete_method == "z3":
+            if self._z3 is None:
+                from .z3_backend import Z3IncrementalSolver
+                self._z3 = Z3IncrementalSolver()
+            return self._z3
         if self._cdcl is None:
             from .cdcl import CDCLSolver
             self._cdcl = CDCLSolver(max_learnt=self.max_learnt)
@@ -398,11 +406,16 @@ class SolverSession:
         assumptions = self.enc.assumptions(ii)
         backend = self._sync()
         stats = SolveStats(via=self.complete_method)
-        stats.learned_retained = backend.n_learnt
-        status, model = backend.solve(assumptions=assumptions, stop=stop,
-                                      phase_hint=phase_hint)
-        stats.conflicts = backend.last_conflicts
-        stats.evicted = backend.evicted_total or None
+        if self.complete_method == "cdcl":
+            stats.learned_retained = backend.n_learnt
+            status, model = backend.solve(assumptions=assumptions, stop=stop,
+                                          phase_hint=phase_hint)
+            stats.conflicts = backend.last_conflicts
+            stats.evicted = backend.evicted_total or None
+        else:
+            status, model = backend.solve(assumptions=assumptions, stop=stop)
+            zst = backend.stats()
+            stats.conflicts = int(zst.get("conflicts", 0)) or None
         self.n_solves += 1
         from . import SAT, UNSAT
         if status == UNSAT:
@@ -514,7 +527,7 @@ class WindowResult:
     """Outcome of one candidate in a window solve."""
     status: str                      # SAT | UNSAT | UNKNOWN | CANCELLED
     model: Optional[List[bool]]
-    via: str                         # "cdcl" | "walksat" | "cancel" ...
+    via: str                         # "cdcl" | "z3" | "walksat" | "cancel" ...
     # elapsed time from window start to this candidate's delivery — i.e.
     # queueing + solving, NOT the solver's own runtime (candidates share
     # a worker pool; a 0.1s solve that waited 5s reports 5.1s)
@@ -544,7 +557,7 @@ def solve_window(cnfs: List[CNF], *, method: str = "auto", seed: int = 0,
     The batched-WalkSAT racer is *staged*: it sleeps for ``walksat_delay``
     seconds and starts walking only if the complete leg hasn't already
     resolved the window — easy windows (the common case on small kernels)
-    never pay for it, hard SAT instances still get cracked while CDCL
+    never pay for it, hard SAT instances still get cracked while CDCL/z3
     grinds on the proofs.
 
     With ``session`` (the incremental core), the complete leg is the
@@ -577,7 +590,7 @@ def solve_window(cnfs: List[CNF], *, method: str = "auto", seed: int = 0,
     if method == "portfolio":   # portfolio semantics == complete + racer
         method, use_walksat = "auto", True
     method = resolve_method(method)
-    complete = method == "cdcl"
+    complete = method in ("z3", "cdcl")
     if use_walksat is None:
         use_walksat = True
 
@@ -875,8 +888,9 @@ def solve_window(cnfs: List[CNF], *, method: str = "auto", seed: int = 0,
         if futs is not None:
             run_complete_procs(futs)
         else:
-            # the fallback when the process pool is unavailable: a small
-            # thread pool, lowest II first
+            # z3 (releases the GIL inside check()) — or the fallback when
+            # the process pool is unavailable: a small thread pool, lowest
+            # II first
             workers = max_workers or max(1, min(K, (os.cpu_count() or 2)))
             with ThreadPoolExecutor(max_workers=workers) as tpool:
                 list(tpool.map(run_complete, range(K)))

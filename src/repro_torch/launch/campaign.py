@@ -25,8 +25,9 @@ One invocation runs the whole data flywheel end to end:
 ``--check`` turns the summary into CI gates (see :func:`check_gates`);
 ``--bench-out`` writes the summary JSON. The pool's shards are spawned
 processes on the port's default device (``repro_torch.core.workers``).
-Their cells are mapped by the default solver, CDCL on the host; a walk
-racer, staged behind ``walksat_delay``, would run on that device.
+Their cells are mapped by the default solver on the host (z3 where it
+imports, else CDCL); a walk racer, staged behind ``walksat_delay``,
+would run on that device.
 """
 from __future__ import annotations
 
@@ -196,8 +197,10 @@ def run(seed: int = 0, out: str = "campaign_out", workers: int = 2,
 
             held = _holdout_cells(items, gallery, datagen_cfg)
             held = [c for c in held if c[0].kind != "suite"][:eval_cells]
+            t_eval = time.time()
             ev = eval_guided_attempts(held, "campaign", timeout_s,
                                       sweep_width)
+            ev["wall_s"] = time.time() - t_eval
             print(f"eval: {ev['cells']} held-out cells, attempts "
                   f"{ev['attempts_unguided']} unguided -> "
                   f"{ev['attempts_guided']} guided "
@@ -207,8 +210,10 @@ def run(seed: int = 0, out: str = "campaign_out", workers: int = 2,
 
             # shards resolve the guide from disk (their registries are
             # empty: spawned processes start without this process's)
+            t_gate = time.time()
             gate = suite_gate(guide_path, pool, timeout_s, sweep_width,
                               sizes=suite_sizes)
+            gate["wall_s"] = time.time() - t_gate
             print(f"suite gate: {gate['cells']} cells, "
                   f"{'OK' if gate['ok'] else 'MISMATCH: ' + str(gate['mismatches'])}")
             summary["suite_gate"] = gate

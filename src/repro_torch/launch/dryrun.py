@@ -69,6 +69,7 @@ import argparse
 import json
 import math
 import os
+import re
 import time
 import traceback
 import weakref
@@ -361,6 +362,98 @@ class CollectiveCounter(_LocalOnly, TorchDispatchMode):
         return st
 
 
+_PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the DTensor modules whose frames name who asked for a collective: an
+# op's own sharding propagation (``_dispatch``), or the explicit API
+_PROPAGATION = os.path.join("distributed", "tensor", "_dispatch.py")
+_ENGINE = os.path.join("autograd", "graph.py")
+_EXPLICIT = {os.path.join("distributed", "tensor", "_api.py"): "redistribute",
+             os.path.join("distributed", "tensor", "experimental",
+                          "_func_map.py"): "local_map"}
+
+
+def _port_site(lines, depth: int = 2) -> Optional[str]:
+    """The innermost ``depth`` frames under the port's package (this
+    module's own aside) among traceback entries
+    (``traceback.FrameSummary``), innermost first, as ``file:line``
+    relative to the package's parent (``repro_torch/...``) joined by
+    ``" < "``."""
+    out = []
+    for fr in reversed(lines):
+        if fr.filename.startswith(_PORT + os.sep) and \
+                fr.filename != os.path.abspath(__file__):
+            rel = os.path.relpath(fr.filename, os.path.dirname(_PORT))
+            out.append(f"{rel}:{fr.lineno}")
+            if len(out) == depth:
+                break
+    return " < ".join(out) or None
+
+
+class CollectiveRecorder(CollectiveCounter):
+    """:class:`CollectiveCounter` that also records, with each op, who
+    issued it: ``site``, the two innermost frames in the port (file:line;
+    for an op of DTensor's own backward, which runs no frame of the port,
+    the forward frames of the autograd node being run, which needs
+    ``torch.autograd.set_detect_anomaly``, as :func:`record_collectives`
+    sets), ``phase`` (``"forward"`` or the backward node's name: a
+    remat recomputation runs under the node that unpacks its result) and
+    ``by``: ``"propagation"`` where DTensor's sharding propagation relaid
+    an op's input out, ``"redistribute"`` or ``"local_map"`` where the
+    port's explicit call did, ``"autograd"`` where the backward of such a
+    call did. ``records`` holds (label, kind, wire bytes, site, phase,
+    by) per op."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def _local(self, func, types, args, kwargs):
+        n = len(self.ops)
+        out = super()._local(func, types, args, kwargs)
+        if len(self.ops) > n:
+            self.records.append(self.ops[-1] + self._who())
+        return out
+
+    @staticmethod
+    def _who() -> Tuple[Optional[str], str, str]:
+        stack = traceback.extract_stack()
+        by = "autograd"
+        for fr in reversed(stack):
+            if fr.filename.endswith(_PROPAGATION):
+                by = "propagation"
+                break
+            hit = next((v for k, v in _EXPLICIT.items()
+                        if fr.filename.endswith(k)), None)
+            if hit is not None:
+                by = hit
+                break
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return _port_site(stack), "forward", by
+        # the frames the autograd engine runs (a backward of the port's, a
+        # remat recomputation), not the one that called backward()
+        engine = max((i for i, fr in enumerate(stack)
+                      if fr.filename.endswith(_ENGINE)), default=-1)
+        site = _port_site(stack[engine + 1:])
+        if site is None:
+            # DTensor's own backward (of a redistribute, a local map, an
+            # op): where the port ran the node's forward
+            site = _port_site(_parse_traceback(
+                node.metadata.get("traceback_") or []))
+        return site, node.name(), by
+
+
+def _parse_traceback(tb) -> list:
+    """Frames (filename, lineno) from the formatted forward traceback that
+    anomaly mode keeps on an autograd node."""
+    frames = []
+    for chunk in tb:
+        for m in re.finditer(r'File "([^"]+)", line (\d+)', chunk):
+            frames.append(traceback.FrameSummary(m.group(1),
+                                                 int(m.group(2)), ""))
+    return frames
+
+
 def local_shards(xs):
     """A tree with every DTensor replaced by its local shard."""
     from torch.distributed.tensor import DTensor
@@ -373,8 +466,9 @@ def local_shards(xs):
     return xs
 
 
-def trace_local(fn, *args, known: Any = (),
-                device_type: str = "meta") -> Dict[str, Any]:
+def trace_local(fn, *args, known: Any = (), device_type: str = "meta",
+                counter: Optional[CollectiveCounter] = None
+                ) -> Dict[str, Any]:
     """:func:`trace_step` over each rank's local program of a DTensor
     step whose local shards live on ``device_type``: flops (and by
     operator, ``"flops_by_op"``), bytes accessed, temp and output bytes
@@ -384,7 +478,7 @@ def trace_local(fn, *args, known: Any = (),
     from torch.distributed.tensor.experimental import implicit_replication
     known_local = local_shards((args, known))
     fc = _LocalFlops(device_type)
-    tr, cc = _LocalTraffic(known_local), CollectiveCounter()
+    tr, cc = _LocalTraffic(known_local), counter or CollectiveCounter()
     tr.device_type = cc.device_type = device_type
     t0 = time.perf_counter()
     with implicit_replication(), fc, tr, cc:
@@ -455,6 +549,20 @@ def trace_partitioned(cfg: ModelConfig, shape: ShapeConfig,
         lm, fn, fargs, args = partitioned_cell(cfg, shape, mesh)
         return trace_local(fn, *fargs, known=(dict(lm.named_parameters()),
                                               args))
+
+
+def record_collectives(cfg: ModelConfig, shape: ShapeConfig,
+                       mesh: LogicalMesh) -> CollectiveRecorder:
+    """:func:`trace_partitioned`'s collectives with who issued each
+    (:class:`CollectiveRecorder`), under anomaly mode so that an op of the
+    backward names its forward site."""
+    rec = CollectiveRecorder()
+    with fake_world(mesh.size), torch.autograd.set_detect_anomaly(
+            True, check_nan=False):
+        lm, fn, fargs, args = partitioned_cell(cfg, shape, mesh)
+        trace_local(fn, *fargs, known=(dict(lm.named_parameters()), args),
+                    counter=rec)
+    return rec
 
 
 def _step(lm: LM, shape: ShapeConfig, args: Dict[str, Any]):
@@ -588,8 +696,7 @@ def run_cell_with_probes(arch: str, shape: Union[str, ShapeConfig],
             raise ValueError(f"{rec['arch']}/{rec['shape']}/{rec['mesh']}: "
                              f"probe-corrected {key} {got} differs from the "
                              f"direct count {want}")
-    part = {d: trace_partitioned(cfg.replace(n_layers=d, scan_layers=False),
-                                 shp, mesh) for d in (1, 2)}
+    part = _partitioned_probes(cfg, shp, mesh)
     ext = {k: _extrapolate(part[1][k], part[2][k], L)
            for k in ("flops", "bytes_accessed", "temp_bytes",
                      "output_bytes")}
@@ -606,11 +713,8 @@ def run_cell_with_probes(arch: str, shape: Union[str, ShapeConfig],
     mem["per_device"] = {"argument_bytes": "exact",
                          "output_bytes": "partitioned",
                          "temp_bytes": "partitioned"}
-    rec["collectives"] = {
-        "wire_bytes": wire,
-        "count": _extrapolate(st[1].count, st[2].count, L),
-        "by_kind": _extrapolate(st[1].by_kind, st[2].by_kind, L),
-        "top": st[2].top[:6]}
+    rec["collectives"] = dict(_probed_collectives(part, L),
+                              top=st[2].top[:6])
     rec["cost_corrected"] = {
         "flops": ext["flops"], "bytes_accessed": ext["bytes_accessed"],
         "wire_bytes": wire,
@@ -620,6 +724,107 @@ def run_cell_with_probes(arch: str, shape: Union[str, ShapeConfig],
     if ext["flops"]:
         rec["useful_flop_ratio"] = rec["model_flops_per_chip"] / ext["flops"]
     return rec
+
+
+def _write_sites(arch: str, shape: str, mesh: LogicalMesh,
+                 overrides: Optional[Dict[str, Any]], out: str) -> None:
+    """``--sites``: one JSONL record per probe depth (L=1, L=2) of a cell,
+    its collectives by call site (:func:`record_collectives`), with the
+    torch version that partitioned it."""
+    cfg, shp = _resolve(arch, shape, overrides)
+    ok, why = shape_applicable(cfg, shp)
+    for depth in (1, 2) if ok else ():
+        t0 = time.perf_counter()
+        rec = record_collectives(cfg.replace(n_layers=depth,
+                                             scan_layers=False), shp, mesh)
+        row = {"arch": arch, "shape": shape, "mesh": mesh.name,
+               "n_layers": depth, "torch": torch.__version__,
+               "wire_bytes": sum(r[2] for r in rec.records),
+               "count": len(rec.records),
+               "ops": [dict(zip(("label", "kind", "wire_bytes", "site",
+                                 "phase", "by"), r)) for r in rec.records]}
+        with open(out, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        print(f"[sites] {arch}/{shape}/{mesh.name} L={depth}: "
+              f"{row['count']} ops, {row['wire_bytes']:.0f} wire bytes, "
+              f"{sum(r[5] == 'propagation' for r in rec.records)} by "
+              f"propagation ({time.perf_counter() - t0:.1f}s)", flush=True)
+
+
+def _partitioned_probes(cfg: ModelConfig, shp: ShapeConfig,
+                        mesh: LogicalMesh) -> Dict[int, Dict[str, Any]]:
+    """:func:`trace_partitioned` of the L=1 and L=2 probes."""
+    return {d: trace_partitioned(cfg.replace(n_layers=d, scan_layers=False),
+                                 shp, mesh) for d in (1, 2)}
+
+
+def _probed_collectives(part: Dict[int, Dict[str, Any]], L: int
+                        ) -> Dict[str, Any]:
+    """The probes' collectives extrapolated to depth ``L``: wire bytes,
+    op count and wire bytes by kind."""
+    st = {d: part[d]["collectives"] for d in (1, 2)}
+    return {"wire_bytes": _extrapolate(st[1].wire_bytes, st[2].wire_bytes,
+                                       L),
+            "count": _extrapolate(st[1].count, st[2].count, L),
+            "by_kind": _extrapolate(st[1].by_kind, st[2].by_kind, L)}
+
+
+# the multi-pod cells probed besides every pod cell: the reference's own
+# slow cell
+PROBED_MULTIPOD = (("mamba2_370m", "decode_32k"),)
+# the processes that share ``--counts``'s cells (each traces on the meta
+# device: little memory, one core)
+COUNTS_WORKERS = min(6, os.cpu_count() or 1)
+COUNTS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "collective_counts.json")
+
+
+def probed_cells() -> list:
+    """(arch, shape, multi_pod) of every probed cell that applies: each
+    pod cell, and the multi-pod cells of ``PROBED_MULTIPOD``."""
+    cells = [(a, s, False) for a in ARCHS for s in SHAPES]
+    cells += [(a, s, True) for a, s in PROBED_MULTIPOD]
+    return [c for c in cells
+            if shape_applicable(get_config(c[0]), SHAPES[c[1]])[0]]
+
+
+def cell_key(arch: str, shape: str, multi_pod: bool) -> str:
+    return f"{arch}/{shape}/{make_production_mesh(multi_pod=multi_pod).name}"
+
+
+def collective_counts(arch: str, shape: str, multi_pod: bool
+                      ) -> Dict[str, Any]:
+    """The collectives of a probed cell as :func:`run_cell_with_probes`
+    records them (wire bytes, count, by kind), from the partitioned
+    probes alone."""
+    cfg, shp = _resolve(arch, shape, None)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    return _probed_collectives(_partitioned_probes(cfg, shp, mesh),
+                               cfg.n_layers)
+
+
+def _counts_of(cell) -> Tuple[str, Dict[str, Any]]:
+    return cell_key(*cell), collective_counts(*cell)
+
+
+def write_counts(path: str) -> Dict[str, Any]:
+    """``--counts``: every probed cell's collectives (:func:`probed_cells`,
+    :func:`collective_counts`) in one JSON file, with the torch version
+    that partitioned them. ``COUNTS_WORKERS`` spawned processes share the
+    cells."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(COUNTS_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as ex:
+        rows = list(ex.map(_counts_of, probed_cells()))
+    out = {"torch": torch.__version__,
+           "command": "PYTHONPATH=src python -m repro_torch.launch.dryrun "
+                      "--counts " + os.path.relpath(path),
+           "cells": dict(sorted(rows))}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return out
 
 
 def main(argv=None) -> None:
@@ -638,7 +843,20 @@ def main(argv=None) -> None:
     ap.add_argument("--multipod-probes", action="store_true",
                     help="probe the 2x16x16 cells too (the reference "
                          "probes the pod mesh only)")
+    ap.add_argument("--counts", default=None, metavar="PATH",
+                    help="write every probed cell's collectives (wire "
+                         "bytes, count, by kind) to PATH as JSON and exit "
+                         "(the committed file is " + os.path.relpath(
+                             COUNTS_FILE) + ")")
+    ap.add_argument("--sites", action="store_true",
+                    help="record each collective of the L=1/L=2 probes "
+                         "with its call site and issuer "
+                         "(record_collectives), one JSON record a probe")
     args = ap.parse_args(argv)
+    if args.counts:
+        out = write_counts(args.counts)
+        print(f"[counts] {len(out['cells'])} cells -> {args.counts}")
+        return
 
     archs = ARCHS if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) \
@@ -654,6 +872,9 @@ def main(argv=None) -> None:
                 mesh = make_production_mesh(multi_pod=mp)
                 key = f"{arch}/{shape}/{mesh.name}"
                 t0 = time.perf_counter()
+                if args.sites:
+                    _write_sites(arch, shape, mesh, overrides, args.out)
+                    continue
                 try:
                     # probes on the single-pod mesh, as the reference
                     if args.no_probes or (mp and not args.multipod_probes):

@@ -55,10 +55,6 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, r = ctx.saved_tensors
-        if is_sharded(dy):
-            # a partial cotangent (a row-parallel product's) is summed in
-            # the residual dtype, at the boundary, not in the f32 inside
-            dy = dy.redistribute(dy.device_mesh, x.placements)
         xf = x.float()
         dyf = dy.float()
         xhat = xf * r
@@ -68,9 +64,92 @@ class _RMSNorm(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
+def _feature_mean(mesh, pl, local: torch.Tensor, n: int) -> torch.Tensor:
+    """The mean over all ``n`` features of a local [..., F] f32 term of a
+    DTensor laid out as ``pl`` on ``mesh``, [..., 1], whole on every rank:
+    the local mean where no mesh axis of more than one rank splits the
+    features, else the local sums all-reduced over the axes that do (one
+    explicit ``redistribute`` of a partial sum) over ``n``, other axes as
+    the rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    last = local.dim() - 1
+    split = [p.is_shard(last) and mesh.size(i) > 1 for i, p in enumerate(pl)]
+    if not any(split):
+        return torch.mean(local, dim=-1, keepdim=True)
+    part = [Partial() if s else p for s, p in zip(split, pl)]
+    whole = [Replicate() if s else p for s, p in zip(split, pl)]
+    total = DTensor.from_local(local.sum(dim=-1, keepdim=True), mesh, part,
+                               run_check=False)
+    return total.redistribute(mesh, whole).to_local() / n
+
+
+def _fresh(local: torch.Tensor, mesh, pl, shape) -> torch.Tensor:
+    """The DTensor of global ``shape`` laid out as ``pl`` whose local shard
+    is ``local``, with the dense strides of a tensor an op makes."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+class _ShardedRMSNorm(torch.autograd.Function):
+    """:class:`_RMSNorm` of a DTensor, on its local shards, ``w`` split as
+    ``x``'s features. Each rank normalises its own rows and features; the
+    two means over the features (of the squares forward, of g * xhat
+    backward) are all-reduced over the axes that split the features, [...,
+    1] f32 each (:func:`_feature_mean`; none where no axis splits them:
+    the residual's norms), where DTensor's propagation would choose the
+    collectives itself (differently in different torch versions). A
+    partial cotangent (a row-parallel product's) is summed in the residual
+    dtype, at the boundary, not in the f32 inside. ``w``'s gradient is a
+    partial sum over the axes that split ``x``'s rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        mesh, pl = x.device_mesh, tuple(x.placements)
+        xl, wl = x.to_local(), w.to_local()
+        xf = xl.float()
+        r = torch.rsqrt(_feature_mean(mesh, pl, xf * xf, x.shape[-1]) + eps)
+        ctx.save_for_backward(xl, wl, r)
+        ctx.meta = (mesh, pl, x.shape, w.shape)
+        return _fresh((xf * r).to(xl.dtype) * wl, mesh, pl, x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh, pl, xshape, wshape = ctx.meta
+        xl, wl, r = ctx.saved_tensors
+        if tuple(dy.placements) != pl:
+            dy = dy.redistribute(mesh, pl)
+        last = xl.dim() - 1
+        xf, dyf = xl.float(), dy.to_local().float()
+        xhat = xf * r
+        g = dyf * wl.float()
+        dw = torch.sum(dyf * xhat, dim=tuple(range(last)))
+        dx = r * (g - xhat * _feature_mean(mesh, pl, g * xhat, xshape[-1]))
+        dwp = [Shard(0) if p.is_shard(last) else
+               Partial() if p.is_shard() else Replicate() for p in pl]
+        return (_fresh(dx.to(xl.dtype), mesh, pl, xshape),
+                _fresh(dw.to(wl.dtype), mesh, dwp, wshape), None)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm; differentiable through the reference's custom VJP."""
-    return _RMSNorm.apply(x, w, eps)
+    """RMSNorm; differentiable through the reference's custom VJP. A
+    DTensor takes :class:`_ShardedRMSNorm`, ``w`` relaid out as ``x``'s
+    features first (a decode step's replicated norm weight on the
+    embedding's feature shards: a local slice)."""
+    if not is_sharded(x):
+        return _RMSNorm.apply(x, w, eps)
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"rmsnorm of a partial sum: {x.placements}")
+    want = [Shard(0) if p.is_shard(last) else Replicate()
+            for p in x.placements]
+    return _ShardedRMSNorm.apply(x, _laid_out(w, want), eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -268,14 +347,68 @@ def _summed(x: torch.Tensor, pl: list) -> list:
 
 def _local_map(fn, outs, ins, args, grads=None):
     """``fn(*args)`` on each rank's local shards (``local_map``): the
-    inputs redistributed to ``ins`` first, the outputs laid out as
-    ``outs`` (a list of placements for one output, a tuple of such lists
-    for several), the inputs' gradients as ``grads`` (default: as
-    ``ins``)."""
+    inputs laid out as ``ins`` already (a call site relays an input out
+    with :func:`_laid_out`; ``local_map`` raises on any other layout, so
+    no collective here depends on a layout DTensor chose), the outputs
+    laid out as ``outs`` (a list of placements for one output, a tuple of
+    such lists for several), the inputs' gradients as ``grads`` (default:
+    as ``ins``)."""
     from torch.distributed.tensor.experimental import local_map
     return local_map(fn, out_placements=outs, in_placements=ins,
                      in_grad_placements=grads or ins,
-                     redistribute_inputs=True)(*args)
+                     redistribute_inputs=False)(*args)
+
+
+def _laid_out(t: Optional[torch.Tensor], pl) -> Optional[torch.Tensor]:
+    """``t`` redistributed to the placements ``pl`` (an explicit relayout
+    before a local map), ``t`` itself where it is laid out so (or None)."""
+    if t is None or tuple(t.placements) == tuple(pl):
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _column_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a weight whose output features are split over
+    "model" (column-parallel: the MLP's gate and up, the SSM's z and x).
+    On DTensors a local map: each rank's rows of ``x`` (features whole)
+    times its columns of ``w``, the output's features split as ``w``'s
+    columns; ``x``'s gradient a partial sum over the axes that split the
+    columns, ``w``'s over the axes that split ``x``'s rows."""
+    if not is_sharded(x):
+        return x @ w
+    from torch.distributed.tensor import Partial, Shard
+    last = x.dim() - 1
+    xp, wp = list(x.placements), list(w.placements)
+    if any(p.is_shard(last) or p.is_partial() for p in xp) or \
+            any(p.is_shard(0) or p.is_partial() for p in wp):
+        raise ValueError(f"column-parallel product of {xp} and {wp}: x "
+                         f"takes its features whole, w splits its columns")
+    out = [Shard(last) if pw.is_shard(1) else px for px, pw in zip(xp, wp)]
+    xg = [Partial() if pw.is_shard(1) else px for px, pw in zip(xp, wp)]
+    wg = [Partial() if px.is_shard() else pw for px, pw in zip(xp, wp)]
+    return _local_map(torch.matmul, out, (xp, wp), (x, w), (xg, wg))
+
+
+def _row_parallel(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``y @ w`` for a weight whose input features are split over "model"
+    as ``y``'s are (row-parallel: the MLP's down, the SSM's out). On
+    DTensors a local map whose output is a partial sum over the axes that
+    split the features, which the caller lays out (``LM._scattered``);
+    ``y``'s gradient laid out as ``y``, ``w``'s a partial sum over the axes
+    that split ``y``'s rows."""
+    if not is_sharded(y):
+        return y @ w
+    from torch.distributed.tensor import Partial
+    last = y.dim() - 1
+    yp, wp = list(y.placements), list(w.placements)
+    if any(py.is_shard(last) != pw.is_shard(0) or py.is_partial()
+           or pw.is_shard(1) or pw.is_partial() for py, pw in zip(yp, wp)):
+        raise ValueError(f"row-parallel product of {yp} and {wp}: w splits "
+                         f"its rows as y its features")
+    out = [Partial() if pw.is_shard(0) else py for py, pw in zip(yp, wp)]
+    wg = [Partial() if py.is_shard() and not py.is_shard(last) else pw
+          for py, pw in zip(yp, wp)]
+    return _local_map(torch.matmul, out, (yp, wp), (y, w), (yp, wg))
 
 
 class _PartialGrad(torch.autograd.Function):
@@ -434,13 +567,13 @@ def ce_terms(lg: torch.Tensor, labels: torch.Tensor
 
 # ------------------------------------------------------------------- MLP
 def swiglu(p: Params, x: torch.Tensor, bias: bool = False) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
+    g = _column_parallel(x, p["w_gate"])
+    u = _column_parallel(x, p["w_up"])
     if bias:
         g = g + p["b_gate"]
         u = u + p["b_up"]
     h = F.silu(g.float()).to(x.dtype) * u
-    out = h @ p["w_down"]
+    out = _row_parallel(h, p["w_down"])
     if bias:
         out = out + p["b_down"]
     return out
@@ -660,10 +793,13 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
             out = out + sh
         return out, psum, csum
 
+    ins = (x_in, lay(rep, rep), exp_in, exp_in, exp_in, shared_in)
+    args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"], shared)
+    # a whole group's tokens gathered over the data axes, and under
+    # fsdp_experts the expert weights, relaid out here
     return _local_map(
-        local, (out_pl, sums, sums),
-        (x_in, lay(rep, rep), exp_in, exp_in, exp_in, shared_in),
-        (x, p["router"], p["w_gate"], p["w_up"], p["w_down"], shared),
+        local, (out_pl, sums, sums), ins,
+        tuple(_laid_out(a, pl) for a, pl in zip(args, ins)),
         (x_grad, lay(part, part), exp_grad, exp_grad, exp_grad,
          shared_grad))
 
@@ -742,10 +878,14 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, return_state: bool = False):
         # each rank's heads contribute a partial sum to B's and C's grads
         bcg = [Partial() if px.is_shard(2) else p
                for px, p in zip(x.placements, bc)]
+        # the step sizes and the per-head vectors sliced to this rank's
+        # heads (a local slice; the backward gathers their gradients)
         return _local_map(
             lambda *a: ssd_chunked(*a, chunk, return_state),
             (xp, st) if return_state else xp,
-            (xp, hd, vec, bc, bc, vec), (x, dt, A_log, B, C, D),
+            (xp, hd, vec, bc, bc, vec),
+            (x, _laid_out(dt, hd), _laid_out(A_log, vec), B, C,
+             _laid_out(D, vec)),
             (xp, hd, sv, bcg, bcg, sv))
     b, s, h, hp = x.shape
     n = B.shape[-1]
@@ -822,7 +962,8 @@ def ssd_decode_step(state, x, dt, A_log, B, C, D):
         bc = _follow(x, 0, None, 1)
         return _local_map(ssd_decode_step, (xp, xp),
                           (xp, xp, xp, vec, bc, bc, vec),
-                          (state, x, dt, A_log, B, C, D))
+                          (_laid_out(state, xp), x, _laid_out(dt, xp),
+                           _laid_out(A_log, vec), B, C, _laid_out(D, vec)))
     A = -torch.exp(A_log.float())
     dtf = dt.float()
     dA = torch.exp(dtf * A)                                  # [b,h]
@@ -855,6 +996,31 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y, xp[:, -(k - 1):, :]
 
 
+def _viewed(t: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``t.reshape(shape)`` between the SSM's channels [B,S,H*P] and heads
+    [B,S,H,P]; on DTensors a local map (each rank's rows and heads, dim 2
+    split alike on both sides, the gradient laid out so too)."""
+    if not is_sharded(t):
+        return t.reshape(shape)
+    pl = list(t.placements)
+    if any(p.is_partial() or (p.is_shard() and not p.is_shard(0)
+                              and not p.is_shard(2)) for p in pl):
+        raise ValueError(f"the SSM's view of {pl}: rows on dim 0, channels "
+                         f"or heads on dim 2")
+    tail = tuple(shape[3:])
+    return _local_map(lambda a: a.reshape(a.shape[0], a.shape[1], -1, *tail),
+                      pl, (pl,), (t,))
+
+
+def _gated(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The SSM's gate ``y * silu(z)`` (silu in f32, cast to y's dtype);
+    on DTensors a local map on each rank's rows and channels."""
+    if not is_sharded(y):
+        return y * F.silu(z.float()).to(y.dtype)
+    pl = list(y.placements)
+    return _local_map(_gated, pl, (pl, pl), (y, z))
+
+
 def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
               cache: Optional[Params] = None, want_cache: bool = False):
     """Mamba2 mixer. x: [B,S,D]. If ``cache`` is given (decode), S must be 1.
@@ -862,8 +1028,8 @@ def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     b, s, d = x.shape
     h, hp = cfg.ssm_heads, cfg.ssm_head_dim
     di = h * hp
-    z = x @ p["w_z"]
-    xin = x @ p["w_x"]
+    z = _column_parallel(x, p["w_z"])
+    xin = _column_parallel(x, p["w_x"])
     xr = _partial_grad(x)       # the replicated weights' products
     Bc = xr @ p["w_B"]
     Cc = xr @ p["w_C"]
@@ -873,7 +1039,7 @@ def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Bc, conv_B = _causal_conv(Bc, p["conv_B"], cv.get("conv_B"))
     Cc, conv_C = _causal_conv(Cc, p["conv_C"], cv.get("conv_C"))
     dt = _dt_softplus(dt, p["dt_bias"])
-    xh = xin.reshape(b, s, h, hp)
+    xh = _viewed(xin, (b, s, h, hp))
     if cache is None:
         if want_cache:  # prefill: also hand the final state to decode
             y, new_state = ssd_chunked(xh, dt, p["A_log"], Bc, Cc, p["D"],
@@ -889,9 +1055,9 @@ def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
             cache["state"], xh[:, 0], dt[:, 0], p["A_log"], Bc[:, 0],
             Cc[:, 0], p["D"])
         y = y1[:, None]
-    y = y.reshape(b, s, di)
-    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"]
+    y = _viewed(y, (b, s, di))
+    y = rmsnorm(_gated(y, z), p["norm"], cfg.norm_eps)
+    out = _row_parallel(y, p["w_out"])
     new_cache = ({"state": new_state, "conv_x": conv_x, "conv_B": conv_B,
                   "conv_C": conv_C}
                  if (cache is not None or want_cache) else None)

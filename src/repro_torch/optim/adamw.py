@@ -141,6 +141,16 @@ def _sum_of_squares(grads: List[torch.Tensor]) -> torch.Tensor:
     return total.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
+def _gathered_to(new: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The updated leaf ``new`` laid out as the parameter ``p``: under
+    ZeRO-1 the update is computed on the moments' data shards, and the
+    parameter's dtype is all-gathered over the data axes here (an explicit
+    ``redistribute``, not the one ``copy_``'s propagation would pick)."""
+    if is_sharded(new) and tuple(new.placements) != tuple(p.placements):
+        return new.redistribute(p.device_mesh, p.placements)
+    return new
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: State,
            params: Mapping[str, torch.Tensor]) -> Tuple[State, Dict[str, Any]]:
@@ -169,6 +179,6 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: State,
         pf = p.float()
         pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
                         + cfg.weight_decay * pf)
-        p.copy_(pf.to(p.dtype))
+        p.copy_(_gathered_to(pf.to(p.dtype), p))
     return {"m": state["m"], "v": state["v"], "step": step}, {
         "grad_norm": gnorm, "lr": lr}

@@ -1,7 +1,8 @@
 """``repro_torch.compile`` against ``repro.core.api.compile``: the same
 success, II, MII and per-attempt statuses with the walk racer forced on,
-walk models that are models, the timeout probe, the refusals of what is
-not ported yet, and the racer's failures surfacing instead of vanishing."""
+walk models that are models, the timeout probe, solver="z3" without z3
+raising as the reference does, and the racer's failures surfacing
+instead of vanishing."""
 import ast
 import functools
 import os
@@ -14,6 +15,7 @@ import repro.core.sweep as ref_sweep
 import repro_torch
 import repro_torch.core.sweep as port_sweep
 from repro.core import MapRequest as RefMapRequest, compile as ref_compile
+from repro.core import service as ref_service
 from repro.core import suite as ref_suite
 from repro.core.sat import portfolio as ref_portfolio
 from repro_torch import MapperConfig, MapRequest, compile
@@ -129,14 +131,26 @@ def test_timeout_gives_no_ii():
     assert res.timed_out and res.ii is None
 
 
-def test_unported_surfaces_refuse():
-    g = suite.get("nw")
-    with pytest.raises(NotImplementedError):
-        compile(MapRequest(dfg=g, arch="2x2", solver="z3"))
-    # the z3 backend refuses through the service too
-    with pytest.raises(NotImplementedError):
-        compile(MapRequest(dfg=g, arch="2x2", solver="z3",
-                           service=MappingService()))
+def test_unported_surfaces_refuse(monkeypatch):
+    """Without z3, ``solver="z3"`` raises what the reference raises, at the
+    same point (the backend's ``import z3`` at the first solve), directly
+    and through the service; nothing gives way to CDCL."""
+    monkeypatch.setitem(sys.modules, "z3", None)
+    for service in (False, True):
+        with pytest.raises(ModuleNotFoundError) as mine:
+            compile(MapRequest(dfg=suite.get("nw"), arch="2x2", solver="z3",
+                               service=MappingService() if service
+                               else None))
+        with pytest.raises(ModuleNotFoundError) as ref:
+            ref_compile(RefMapRequest(
+                dfg=ref_suite.get("nw"), arch="2x2", solver="z3",
+                service=ref_service.MappingService() if service else None))
+        assert str(mine.value) == str(ref.value)
+        where = [[(os.path.basename(str(e.path)), e.name)
+                  for e in err.traceback[-3:]] for err in (mine, ref)]
+        assert where[0] == where[1] == [
+            ("portfolio.py", "_sync"), ("portfolio.py", "_backend"),
+            ("z3_backend.py", "__init__")]
 
 
 def test_racer_kernel_failure_is_reraised(monkeypatch):
@@ -166,12 +180,33 @@ def _expected_ii_table():
     raise AssertionError("chip_smoke.py has no EXPECTED_II_4X4")
 
 
+def _sat_floor_overrides():
+    """The keyword overrides of ``EXPECTED_SAT_II_4X4 =
+    dict(EXPECTED_II_4X4, ...)`` in ``chip_smoke.py``."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                node.targets[0].id == "EXPECTED_SAT_II_4X4":
+            call = node.value
+            assert call.func.id == "dict" and \
+                call.args[0].id == "EXPECTED_II_4X4"
+            return {k.arg: ast.literal_eval(k.value) for k in call.keywords}
+    raise AssertionError("chip_smoke.py has no EXPECTED_SAT_II_4X4")
+
+
 def test_chip_smoke_expected_iis_are_the_references():
-    """The card-side check of ``chip_smoke.py`` holds the port to this
-    table; it must be what the reference maps at 4x4, sweep width 4."""
+    """The card-side check of ``chip_smoke.py`` holds the port to these
+    tables: the II the reference maps at 4x4, sweep width 4, on CDCL, and
+    the lowest II its attempts find SAT (every lower one UNSAT), which
+    any complete solver must find alike."""
     table = _expected_ii_table()
+    floors = dict(table, **_sat_floor_overrides())
     assert sorted(table) == sorted(ref_suite.names())
     for name in ref_suite.names():
         res = ref_compile(RefMapRequest(dfg=ref_suite.get(name), arch="4x4",
                                         sweep_width=4))
         assert table[name] == (res.ii if res.success else None), name
+        assert floors[name] == min(a.ii for a in res.attempts
+                                   if a.status == "SAT"), name
+        assert all(a.status == "UNSAT" for a in res.attempts
+                   if a.ii < floors[name]), name

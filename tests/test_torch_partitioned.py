@@ -382,14 +382,20 @@ PREFILL_TP_RATIO = (0.05, 0.5)
 
 def test_tensor_parallel_prefill_by_kind_beside_the_reference(
         reference_collectives, capsys):
-    _, got = _port(_PREFILL_TP)
+    """The only all-reduce is the SSM's gated norm's: its sum of squares
+    over the channels split over "model", [B/dp, S, 1] f32 a layer."""
+    cfg, got = _port(_PREFILL_TP)
     ref = reference_collectives["prefill_tp"]
     st = got["collectives"]
     with capsys.disabled():
         print(f"\nhymba smoke prefill 4x64 on 2x2: port {st.by_kind} "
               f"({st.count} ops), reference {ref['by_kind']} "
               f"({ref['count']} ops)")
-    assert set(st.by_kind) == {"all-gather", "reduce-scatter", "all-to-all"}
+    assert set(st.by_kind) == {"all-gather", "reduce-scatter", "all-to-all",
+                               "all-reduce"}
+    _, (_, seq, batch, _), (dp, tp), _ = _PREFILL_TP
+    assert st.by_kind["all-reduce"] == cfg.n_layers * 2 * (tp - 1) / tp * (
+        batch // dp * seq * 4)
     lo, hi = PREFILL_TP_RATIO
     assert lo < st.wire_bytes / ref["wire_bytes"] < hi
 
