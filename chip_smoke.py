@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --host-mesh    # the host world alone
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's four CUDA sources from ``src/repro_torch/kernels/csrc``
@@ -77,7 +78,25 @@ magnitude), crash and resume on the card (2 layers, a checkpoint every 2
 steps, a crash at step 4: params and AdamW state bit-identical to an
 uninterrupted run), and ``attn_impl="flash"`` refusing autograd.
 
-The dry run (``dryrun_phase``, after training): ``run_cell`` of
+The host world (``host_mesh_phase``, after training): the reference's
+host-mesh path, ``train_loop(mesh=)`` and ``serve_lm`` on the partitioned
+LM over every card of the machine, one rank a card over NCCL (a (1, 1)
+world on one card), the ranks spawned through
+``repro_torch.launch.mesh.launch`` as the CLIs start them, so no process
+group is ever up in this process. hymba_1_5b at its published widths
+trains 3 steps at 4 x 4096 (gates: each loss within 1e-3 relative of the
+train phase's first three; the run's checkpoint, restored on the plain
+path, bit-identical to the mesh run's state; the manifest's mesh the
+world's), then serves the serve phase's prompts for 32 greedy steps
+(gates: on one card the serve phase's tokens, on several the run fed the
+serve phase's tokens within total variation 3e-3 of its softmax at each
+step; a planted fault, one rank's cache shard zeroed, read above that
+bound; the same on every rank; 32 tensor-core flash
+launches, each kernel row's ``host_mesh_path_launches``). It prints
+step seconds, peak memory and prefill and decode seconds beside the
+plain path's.
+
+The dry run (``dryrun_phase``, after the host world): ``run_cell`` of
 ``repro_torch.launch.dryrun`` for every arch x shape on the 16x16 pod mesh
 and two cells of the 2x16x16 multi-pod mesh, on the meta device in 8
 spawned host processes (gates: every applicable cell ``ok``, the skips
@@ -181,6 +200,27 @@ GRAD_LAYERS, GRAD_BATCH, GRAD_TOKENS = 2, 2, 256
 GRAD_LOSS_RTOL, GRAD_LEAF_TOL = 1e-5, 1e-3
 RESUME = dict(steps=6, global_batch=4, seq_len=512, ckpt_every=2)
 RESUME_LAYERS, RESUME_FAIL_AT = 2, 4
+# the host world: hymba_1_5b at the train phase's shape (its cut) for
+# HOST_STEPS steps over every card, one rank a card (NCCL), each loss
+# within HOST_LOSS_RTOL of the train phase's from the same seed; then the
+# serve phase's prompts through the partitioned LM. Its checkpoint lives
+# under build/chip_smoke_host_mesh, removed after
+HOST_STEPS, HOST_LOSS_RTOL = 3, 1e-3
+# on more than one card each rank's GEMMs see its rows alone and bf16
+# rounds otherwise than on one card, so greedy tokens may part: the run
+# fed the serve phase's tokens must keep each step's softmax within
+# HOST_TV (total variation) of the serve phase's. Four H100s read at most
+# 3.0e-4 a step; the bound is ten times that. Planted faults: after the
+# prefill the last rank zeroes its shard of the named cache leaves, every
+# layer's, and the run is fed the same tokens for HOST_FAULT_STEPS steps.
+# A lost cache shard ("cache": every leaf but the ring positions) must
+# read above HOST_TV on any number of cards; the one-leaf faults are
+# printed beside it, ungated (random weights leave attention near
+# uniform, so zeroed keys move the softmax little)
+HOST_TV = 3e-3
+HOST_FAULTS = {"cache": ("k", "v", "state", "conv_x", "conv_B", "conv_C"),
+               "k": ("k",), "v": ("v",), "state": ("state",)}
+HOST_FAULT_GATED, HOST_FAULT_STEPS = "cache", 4
 FLASH_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
 # the kernel that flash_attention runs for each dtype
 FLASH_ROUTE = {"torch.float32": "simt", "torch.bfloat16": "tensor_core"}
@@ -204,7 +244,7 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "moe_shape", "train_path_launches",
                  "dryrun_path_launches", "partitioned_path_launches",
                  "partitioned_shape", "partitioned_moe_path_launches",
-                 "partitioned_moe_shape")
+                 "partitioned_moe_shape", "host_mesh_path_launches")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 # the dry run: the sweep's meshes (multi_pod, and None for every arch x
 # shape or the (arch, shape) cells to run). Every cell on both meshes took
@@ -1804,7 +1844,8 @@ def serve_phase(torch, arch, smi):
     config's window), then 32 greedy decode steps; then where its time
     goes (``serve_profile``). Gates: one flash launch per layer, all on
     the tensor cores, no layout copies, finite logits. Returns (the LM,
-    the prompts, the serve result, the launch counts of the run)."""
+    the prompts, the serve result, the launch counts of the run, its peak
+    memory)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import reset_counts
     from repro_torch.launch.serve import serve_lm
@@ -1860,8 +1901,9 @@ def serve_phase(torch, arch, smi):
          launches=launches, flash_route_launches=routes,
          flash_layout_copies=flash.layout_copies, logits_finite=finite,
          first_tokens=res.tokens[:, :8].tolist())
+    peak = torch.cuda.max_memory_allocated()
     serve_profile(torch, lm, prompts)
-    return lm, prompts, res, launches
+    return lm, prompts, res, launches, peak
 
 
 def _profile(torch, fn, match):
@@ -2346,7 +2388,8 @@ def train_main_phase(torch, smi):
          profiled_step={"device_busy_share": prof["device_ms"] / 1e3 / wall,
                         **prof})
     del init, opt, batch, step
-    return launches
+    return launches, {"losses": losses, "step_s": step_s,
+                      "max_memory_allocated": peak}
 
 
 def train_grad_parity_phase(torch, smi):
@@ -2492,8 +2535,9 @@ def train_flash_refusal_phase(torch, smi, lm):
 def train_phase(torch, smi):
     """Training on the card: the main path, card vs CPU gradients, crash
     and resume, and flash refusing autograd. Returns the kernels' launch
-    counts on the main path (all zero)."""
-    launches = train_main_phase(torch, smi)
+    counts on the main path (all zero) and the main path's losses, step
+    seconds and peak memory."""
+    launches, summary = train_main_phase(torch, smi)
     torch.cuda.empty_cache()
     lm = train_grad_parity_phase(torch, smi)
     train_flash_refusal_phase(torch, smi, lm)
@@ -2501,7 +2545,303 @@ def train_phase(torch, smi):
     torch.cuda.empty_cache()
     train_resume_phase(torch, smi)
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
+
+
+# ---------------------------------------------------------- host world
+def _planted(lm, leaves):
+    """``lm.prefill_with_cache`` with a planted fault: after the prefill
+    the last rank zeroes its shard of each cache leaf in ``leaves``."""
+    import torch.distributed as dist
+    real = type(lm).prefill_with_cache
+
+    def prefill_with_cache(*args, **kwargs):
+        lg, cache = real(lm, *args, **kwargs)
+        if dist.get_rank() == dist.get_world_size() - 1:
+            for leaf in leaves:
+                cache[leaf]._local_tensor.zero_()
+        return lg, cache
+
+    return prefill_with_cache
+
+
+def _fed_tv(got, want, vocab):
+    """Per step, the largest total variation over the rows between the
+    softmaxes of two runs' logits fed the same tokens, and the rows whose
+    argmax agree."""
+    import torch
+    tvs, same = [], 0
+    for g, w in zip(got, want):
+        pg = torch.softmax(g[:, 0, :vocab], -1)
+        pw = torch.softmax(w[:, 0, :vocab], -1)
+        tvs.append(float((pg - pw).abs().sum(-1).max()) / 2)
+        same += int((pg.argmax(-1) == pw.argmax(-1)).sum())
+    return tvs, same
+
+
+def host_mesh_rank(ckpt_dir, fed):
+    """One rank of the host world (a spawned process; every rank runs
+    this). Trains hymba_1_5b at its published widths for HOST_STEPS steps
+    of ``train_loop(mesh=)`` at the train phase's 4 x 4096, its log lines
+    timed; restores the run's checkpoint on the plain path (a one-device
+    LM and AdamW state on this rank's card, rank 0) and holds every leaf
+    to the mesh run's, bit for bit; then serves the serve phase's prompts
+    through ``serve_lm`` on the partitioned LM (flash prefill, 32 greedy
+    steps), the kernels' launches counted; on more than one rank also fed
+    ``fed`` (the serve phase's tokens), its logits returned; and, fed the
+    same, once for each planted fault (:func:`_planted`) for
+    HOST_FAULT_STEPS steps. Rank 0 returns what it saw, the others
+    None."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import reset_counts
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.train import _dotted, train_loop
+    from repro_torch.models.model import LM
+    # the parent's settings: f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with mesh_mod.host_world() as dm:
+        rank = dist.get_rank()
+        dev = mesh_mod.mesh_device(dm)
+        cfg = get_config(TRAIN_ARCH)
+        out = {"mesh": list(dm.shape), "world": dist.get_world_size(),
+               "backend": dist.get_backend(), "device": str(dev),
+               "card": torch.cuda.get_device_name(dev)}
+        counters = _counters()
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock = _LineClock()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(clock):
+            res = train_loop(cfg, steps=HOST_STEPS, global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, seed=0, mesh=dm, log_every=1,
+                             ckpt_dir=ckpt_dir, ckpt_every=HOST_STEPS + 1)
+        torch.cuda.synchronize(dev)
+        loop_s = time.perf_counter() - t0
+        times = [t0] + [t for t, _ in clock.lines]
+        out.update(
+            train_launches={n: f.launches for n, f in counters.items()},
+            losses=[float(ln.split("loss=")[1].split()[0])
+                    for _, ln in clock.lines],
+            step_s=[b - a for a, b in zip(times, times[1:])],
+            loop_s=loop_s, checkpoint_save_s=(t0 + loop_s - times[-1]
+                                              if rank == 0 else None),
+            final_loss=res["loss"], final_grad_norm=res["grad_norm"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        # the mesh run's checkpoint restored on the plain path, every leaf
+        # gathered from the mesh (a collective) and held by rank 0
+        t0 = time.perf_counter()
+        if rank == 0:
+            state, manifest = ckpt.restore(ckpt_dir, device=dev)
+            plain = LM(cfg, dev)
+            plain.load_state_dict(_dotted(state["params"]))
+            want = {"params": plain.state_dict(),
+                    "m": _dotted(state["opt"]["m"]),
+                    "v": _dotted(state["opt"]["v"]),
+                    "step": {"step": state["opt"]["step"]}}
+            out["manifest_mesh"] = manifest["extra"]["mesh"]
+        got = {"params": res["params"], "m": res["opt_state"]["m"],
+               "v": res["opt_state"]["v"],
+               "step": {"step": res["opt_state"]["step"]}}
+        differ, n = [], 0
+        for part, leaves in got.items():
+            for k, t in leaves.items():
+                t = t.full_tensor()
+                if rank == 0:
+                    n += 1
+                    if not torch.equal(t, want[part][k]):
+                        differ.append(f"{part}/{k}")
+                del t
+        out.update(restored_leaves=n, restored_differ=differ,
+                   restore_check_s=time.perf_counter() - t0)
+        del res, got
+        if rank == 0:
+            del state, plain, want
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        # serving: the serve phase's LM (seed 0, flash) and prompts
+        scfg = cfg.replace(attn_impl="flash")
+        lm = LM(scfg, dev, mesh=dm).init(
+            torch.Generator(device=dev).manual_seed(0))
+
+        def prompts(seed):
+            return torch.randint(0, scfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(seed),
+                                 device=dev)
+
+        # warm-up on every row (a batch of one on a mesh whose data axis
+        # is 1 cannot be flattened by DTensor: ROADMAP, queue C)
+        serve_lm(lm, prompts(2)[:, :256], 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for f in counters.values():
+            f.launches = 0
+        reset_counts()
+        sres = serve_lm(lm, prompts(1), SERVE_STEPS)
+        flash = counters["flash_attention"]
+        out.update(serve_launches={n: f.launches for n, f in counters.items()},
+                   flash_route_launches=dict(flash.route_launches),
+                   tokens=sres.tokens.cpu().tolist(),
+                   logits_finite=all(bool(torch.isfinite(lg).all())
+                                     for lg in sres.logits),
+                   prefill_s=sres.prefill_s, decode_s=sres.decode_s,
+                   serve_max_memory_allocated=torch.cuda.max_memory_allocated(
+                       dev))
+        if dist.get_world_size() > 1:
+            # each rank's GEMMs see its rows alone, so bf16 rounds
+            # otherwise than on one card: the logits fed the same tokens
+            forced = serve_lm(lm, prompts(1), SERVE_STEPS,
+                              feed=torch.tensor(fed, device=dev))
+            out["forced_logits"] = [lg.cpu() for lg in forced.logits]
+            del forced
+        fault_feed = torch.tensor(fed, device=dev)[:, :HOST_FAULT_STEPS]
+        out["fault_logits"] = {}
+        for fault, leaves in HOST_FAULTS.items():
+            lm.prefill_with_cache = _planted(lm, leaves)
+            try:
+                bad = serve_lm(lm, prompts(1), HOST_FAULT_STEPS,
+                               feed=fault_feed)
+            finally:
+                del lm.prefill_with_cache
+            out["fault_logits"][fault] = [lg.cpu() for lg in bad.logits]
+            del bad
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, [out["final_loss"],
+                                       out["final_grad_norm"], out["tokens"],
+                                       out["serve_launches"]])
+        out["every_rank"] = every
+        del lm, sres
+    return out if rank == 0 else None
+
+
+def host_mesh_phase(torch, smi, train, served):
+    """The reference's host-mesh path: ``train_loop(mesh=)`` and
+    ``serve_lm`` over every card of the machine, one rank a card over
+    NCCL (a (1, 1) world on one card), the ranks started as the CLI
+    starts them (``launch.mesh.launch``, torch's elastic launch API) in
+    spawned processes, so no process group is ever up here. Gates: the
+    world is NCCL over every card; each step's loss within
+    HOST_LOSS_RTOL of the train phase's (``train``, same seed and
+    batches); the checkpoint restored on the plain path equal to the
+    mesh run's state bit for bit, its manifest the mesh's shape; one
+    flash launch a layer on the tensor cores; on one card the served
+    tokens equal the serve phase's (``served``), on several (each rank's
+    GEMMs see its rows alone) the run fed the serve phase's tokens has
+    each step's softmax within HOST_TV of it; the planted lost cache
+    shard reads above HOST_TV; the ranks agree; no group
+    up here after. Prints step seconds, peak memory, prefill and decode
+    seconds beside the plain path's. Returns the kernels' launch counts
+    of the served run."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    n_cards = torch.cuda.device_count()
+    if TRAIN_BATCH % n_cards:
+        raise AssertionError(f"host_mesh: the train phase's batch of "
+                             f"{TRAIN_BATCH} does not split over "
+                             f"{n_cards} cards")
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_host_mesh")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh_mod.launch(host_mesh_rank, (ckpt_dir, served["fed"]),
+                                n_ranks=n_cards)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    out = ranks[0]
+    cfg = get_config(TRAIN_ARCH)
+    want_losses = train["losses"][:HOST_STEPS]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"],
+                                                   want_losses)]
+    flash = out["serve_launches"]["flash_attention"]
+    routes = out["flash_route_launches"]
+    tokens_equal = out["tokens"] == served["tokens"]
+    same_tokens = sum(a == b for got, want in zip(out["tokens"],
+                                                  served["tokens"])
+                      for a, b in zip(got, want))
+    tvs, forced_same = [], None
+    if "forced_logits" in out:
+        tvs, forced_same = _fed_tv(out["forced_logits"], served["logits"],
+                                   cfg.vocab)
+    fault_tv = {fault: _fed_tv(lgs, served["logits"], cfg.vocab)[0]
+                for fault, lgs in out["fault_logits"].items()}
+    same_on_every_rank = all(r == out["every_rank"][0]
+                             for r in out["every_rank"])
+    emit("host_mesh", nvidia_smi=smi, arch=cfg.name, cards=n_cards,
+         world=out["world"], backend=out["backend"], mesh=out["mesh"],
+         rank0_device=out["device"], launch_wall_s=wall_s,
+         steps=HOST_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+         reduced={"global_batch": "256 (train_4k) -> 4, the train phase's "
+                                  "cut"},
+         losses=out["losses"], plain_losses=want_losses,
+         loss_rel_err=loss_rel, loss_rtol=HOST_LOSS_RTOL,
+         step_s=out["step_s"], plain_step_s=train["step_s"][:HOST_STEPS],
+         loop_s=out["loop_s"], checkpoint_save_s=out["checkpoint_save_s"],
+         max_memory_allocated=out["max_memory_allocated"],
+         plain_max_memory_allocated=train["max_memory_allocated"],
+         train_launches=out["train_launches"],
+         manifest_mesh=out["manifest_mesh"],
+         restored_leaves=out["restored_leaves"],
+         restored_differ=out["restored_differ"],
+         restore_check_s=out["restore_check_s"],
+         prefill_s=out["prefill_s"], plain_prefill_s=served["prefill_s"],
+         decode_s=out["decode_s"], plain_decode_s=served["decode_s"],
+         decode_tokens_per_s=SERVE_BATCH * SERVE_STEPS / out["decode_s"],
+         serve_max_memory_allocated=out["serve_max_memory_allocated"],
+         plain_serve_max_memory_allocated=served["max_memory_allocated"],
+         serve_launches=out["serve_launches"], flash_route_launches=routes,
+         tokens_equal_serve_phase=tokens_equal,
+         tokens_same_as_serve_phase=same_tokens,
+         tokens_served=SERVE_BATCH * SERVE_STEPS,
+         fed_tv_per_step=tvs, fed_max_tv=max(tvs) if tvs else None,
+         fed_tv_bound=HOST_TV, fed_greedy_same=forced_same,
+         fault_tv_per_step=fault_tv,
+         fault_max_tv={k: max(v) for k, v in fault_tv.items()},
+         fault_gated=HOST_FAULT_GATED,
+         same_on_every_rank=same_on_every_rank,
+         group_up_here=dist.is_available() and dist.is_initialized())
+    fails = []
+    if out["backend"] != "nccl" or out["world"] != n_cards or \
+            out["mesh"] != [n_cards, 1]:
+        fails.append(f"world {out['backend']} x {out['world']} on "
+                     f"{out['mesh']}, expected nccl over {n_cards} cards")
+    if len(out["losses"]) != HOST_STEPS or max(loss_rel) > HOST_LOSS_RTOL:
+        fails.append(f"losses {out['losses']} against {want_losses}")
+    if out["restored_differ"] or out["manifest_mesh"] != out["mesh"]:
+        fails.append(f"restore differs in {out['restored_differ'][:8]}, "
+                     f"manifest mesh {out['manifest_mesh']}")
+    if not out["logits_finite"]:
+        fails.append("non-finite served logits")
+    if n_cards == 1 and not tokens_equal:
+        fails.append("served tokens differ from the serve phase's")
+    if n_cards > 1 and not max(tvs) < HOST_TV:
+        fails.append(f"fed the serve phase's tokens, the softmax is {tvs} "
+                     f"from it (total variation)")
+    if not max(fault_tv[HOST_FAULT_GATED]) > HOST_TV:
+        fails.append(f"the planted fault {HOST_FAULT_GATED!r} reads "
+                     f"{max(fault_tv[HOST_FAULT_GATED])}, not above the "
+                     f"bound {HOST_TV}")
+    if flash != cfg.n_layers or routes.get("tensor_core") != cfg.n_layers:
+        fails.append(f"flash launched {flash} times ({routes}), expected "
+                     f"{cfg.n_layers} on the tensor cores")
+    if not same_on_every_rank:
+        fails.append("the ranks disagree")
+    if dist.is_available() and dist.is_initialized():
+        fails.append("a process group is up in the smoke's process")
+    if fails:
+        raise AssertionError("host_mesh: " + "; ".join(fails))
+    return out["serve_launches"]
 
 
 # ------------------------------------------------------------- dry run
@@ -3092,6 +3432,35 @@ def examples_phase(smi):
          portfolio_wall_s=out["portfolio_mapper_torch"][3])
 
 
+def _served(res, peak):
+    """What the host world is held to of a serve phase's run, on the
+    host."""
+    return {"tokens": res.tokens.cpu().tolist(),
+            "fed": res.fed.cpu().tolist(),
+            "logits": [lg.cpu() for lg in res.logits],
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "max_memory_allocated": peak}
+
+
+def host_mesh_main(torch, smi) -> int:
+    """``--host-mesh``: the host world alone, with the two phases it is
+    held to (hymba_1_5b's ``serve`` and ``train`` main paths on cuda:0),
+    for a machine of several cards; the last line as the full run's."""
+    from repro_torch.kernels import _cuda
+    _cuda.build(["flash_attention"])
+    lm, _, res, _, peak = serve_phase(torch, "hymba_1_5b", smi)
+    served = _served(res, peak)
+    del lm, res
+    torch.cuda.empty_cache()
+    _, trained = train_main_phase(torch, smi)
+    torch.cuda.empty_cache()
+    host_mesh_phase(torch, smi, trained, served)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import faulthandler
     import torch
@@ -3110,6 +3479,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = environment(torch)
+    if sys.argv[1:] == ["--host-mesh"]:
+        return host_mesh_main(torch, smi)
     t0 = time.perf_counter()
     report = _cuda.build(["clause_eval", "flip_update", "flash_attention",
                           "ssd_scan"])
@@ -3149,16 +3520,17 @@ def main() -> int:
     lm_times = lm_kernel_phase(torch)
     flash_edge_phase(torch)
     torch.cuda.empty_cache()
-    lm, _, _, served = serve_phase(torch, "hymba_1_5b", smi)
+    lm, _, res, served, peak = serve_phase(torch, "hymba_1_5b", smi)
     launches.update({k: served[k] for k in ("flash_attention", "ssd_scan")})
-    del lm
+    hymba_served = _served(res, peak)
+    del lm, res
     torch.cuda.empty_cache()
     serve_agreement_phase(torch, "float32")
     torch.cuda.empty_cache()
     serve_agreement_phase(torch, "bfloat16")
     torch.cuda.empty_cache()
-    lm, prompts, res, moe_launches = serve_phase(torch, "deepseek_moe_16b",
-                                                 smi)
+    lm, prompts, res, moe_launches, _ = serve_phase(
+        torch, "deepseek_moe_16b", smi)
     flash_agreement(torch, lm, prompts)
     torch.cuda.empty_cache()
     kv_quant_phase(torch, lm, prompts, res)
@@ -3168,7 +3540,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_f32_agreement_phase(torch)
     torch.cuda.empty_cache()
-    train_launches = train_phase(torch, smi)
+    train_launches, trained = train_phase(torch, smi)
+    host_launches = host_mesh_phase(torch, smi, trained, hymba_served)
     t0 = time.perf_counter()
     dry_launches, sweep = dryrun_phase(torch, smi)
     (part_launches, part_flash), (moe_part_launches, moe_part_flash) = \
@@ -3204,6 +3577,7 @@ def main() -> int:
         t["dryrun_path_launches"] = dry_launches[name]
         t["partitioned_path_launches"] = part_launches[name]
         t["partitioned_moe_path_launches"] = moe_part_launches[name]
+        t["host_mesh_path_launches"] = host_launches[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
             t["partitioned_shape"] = part_flash

@@ -19,17 +19,27 @@ reference:
     finds the newest complete checkpoint;
   * retention: ``keep_last`` trims old steps after a successful publish.
 
-Leaves may be torch tensors or numpy arrays; ``restore`` returns torch
-tensors (bf16 rebuilt in torch from the ``uint16`` view, without
-``ml_dtypes``). Deliberate difference: ``restore(..., device=)`` puts the
-leaves on one device where the reference places them on a mesh with
-partition specs (one card has no mesh to rescale to).
+Leaves may be torch tensors, numpy arrays or DTensors; ``restore``
+returns torch tensors (bf16 rebuilt in torch from the ``uint16`` view,
+without ``ml_dtypes``).
+
+The elastic path, as the reference's: ``save`` of a tree that holds
+DTensors (the partitioned LM's state on a host world) is collective.
+Every rank calls it with the same tree; each DTensor is gathered
+(``full_tensor()``) in the tree's sorted order, rank 0 writes and the
+others wait for the publish. ``restore(..., mesh=, specs=)`` places each
+leaf on a ``DeviceMesh`` by its spec, every rank slicing its shard from
+the same global array, whatever mesh wrote the checkpoint: one written
+on 4x1 resumes on 2x2 or on one device, and either package reads the
+other's. ``restore(..., device=)`` without a mesh puts the leaves on one
+device.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -57,6 +67,11 @@ def _unflatten(flat: Dict[str, Any]) -> Any:
     return tree
 
 
+def _is_dtensor(val: Any) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(val, mod.DTensor)
+
+
 def _to_numpy(val: Any) -> Tuple[np.ndarray, str]:
     """(array as written, logical dtype name)."""
     if isinstance(val, torch.Tensor):
@@ -73,15 +88,30 @@ def _to_numpy(val: Any) -> Tuple[np.ndarray, str]:
 
 def save(root: str, step: int, tree: Any, *, extra: Optional[Dict] = None,
          chunks: int = 1, keep_last: int = 3) -> str:
-    """Write a checkpoint atomically. Returns the final directory."""
+    """Write a checkpoint atomically. Returns the final directory. A tree
+    that holds DTensors is saved by every rank of their world together:
+    each DTensor is gathered in sorted path order (a collective), rank 0
+    writes each leaf as it comes, one leaf at a time in host memory, and
+    every rank returns once rank 0 has published."""
     final = os.path.join(root, f"ckpt_{step:08d}")
+    flat = _flatten(tree)
+    sharded = any(_is_dtensor(v) for v in flat.values())
+    if sharded:
+        import torch.distributed as dist
+    writes = not sharded or dist.get_rank() == 0
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    if writes:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
     index: Dict[str, Dict] = {}
-    for path, val in _flatten(tree).items():
+    for path, val in flat.items():
+        if _is_dtensor(val):
+            val = val.full_tensor()
+        if not writes:
+            continue
         arr, logical = _to_numpy(val)
+        del val
         safe = path.replace("/", ".")
         n = max(1, min(chunks, arr.shape[0] if arr.ndim else 1))
         parts = np.array_split(arr, n, axis=0) if arr.ndim else [arr]
@@ -89,13 +119,16 @@ def save(root: str, step: int, tree: Any, *, extra: Optional[Dict] = None,
             np.save(os.path.join(tmp, f"{safe}.{i}.npy"), part)
         index[path] = {"dtype": logical, "shape": list(arr.shape),
                        "chunks": len(parts)}
-    manifest = {"step": step, "index": index, "extra": extra or {}}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)                      # atomic publish
-    _trim(root, keep_last)
+    if writes:
+        manifest = {"step": step, "index": index, "extra": extra or {}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                  # atomic publish
+        _trim(root, keep_last)
+    if sharded:
+        dist.barrier()              # the others wait for rank 0's publish
     return final
 
 
@@ -122,10 +155,17 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def restore(root: str, step: Optional[int] = None, *,
-            device: Any = None) -> Tuple[Any, Dict]:
+            device: Any = None, mesh: Any = None,
+            specs: Any = None) -> Tuple[Any, Dict]:
     """Load a checkpoint (the newest complete one when ``step`` is None) as
-    a tree of torch tensors on ``device`` (the CPU when None) and its
-    manifest."""
+    a tree of torch tensors and its manifest. Without ``mesh`` the leaves
+    go to ``device`` (the CPU when None). With ``mesh`` (a ``DeviceMesh``)
+    each leaf becomes a DTensor laid out by its spec in ``specs`` (a tree
+    of the checkpoint's structure; a leaf it does not name is replicated),
+    its shard on ``device`` (the mesh's current device when None), sliced
+    on every rank from the same global array, one leaf at a time: the
+    elastic-rescale path, where the mesh need not match the one the
+    checkpoint was written from."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -133,6 +173,7 @@ def restore(root: str, step: Optional[int] = None, *,
     d = os.path.join(root, f"ckpt_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_specs = _flatten(specs) if specs is not None else {}
     flat: Dict[str, Any] = {}
     for path, info in manifest["index"].items():
         safe = path.replace("/", ".")
@@ -147,5 +188,29 @@ def restore(root: str, step: Optional[int] = None, *,
             raise ValueError(f"checkpoint {d}: leaf {path} has shape "
                              f"{list(t.shape)}, the manifest says "
                              f"{info['shape']}")
-        flat[path] = t if device is None else t.to(device)
+        if mesh is not None:
+            flat[path] = _placed(t, mesh, flat_specs.get(path, ()), device)
+        else:
+            flat[path] = t if device is None else t.to(device)
     return _unflatten(flat), manifest
+
+
+def _placed(t: torch.Tensor, mesh: Any, sp: Any, device: Any) -> Any:
+    """The global leaf ``t`` (on the CPU) as a DTensor on ``mesh`` laid out
+    by the spec ``sp``: this rank's shard, sliced on the CPU and then
+    moved to ``device`` (the mesh's current device when None); no
+    collective, and no leaf-sized temporary on the device."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from ..models.sharding import placements
+    pl = placements(tuple(sp), mesh)
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    if device is None:
+        device = ("cpu" if mesh.device_type == "cpu" else torch.device(
+            mesh.device_type, torch.cuda.current_device()))
+    local = torch.empty(shape, dtype=t.dtype, device=device).copy_(local)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())

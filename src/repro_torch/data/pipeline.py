@@ -7,9 +7,17 @@ to anyone. Resume state is a single integer cursor (the step), stored in
 the checkpoint manifest. Batches are numpy arrays on the host; the
 training loop moves them to its device.
 
+A shard is a slice of the global batch: each row ``r`` of step ``s`` is
+drawn from its own generator, keyed by ``(seed, s, r)``, so shard ``i``
+of ``n`` holds rows ``[i * B/n, (i + 1) * B/n)`` of the one-shard batch
+and the stream is the same whatever the number of data shards. A run on
+a mesh of any data-parallel degree then trains on the batches one device
+trains on, and a checkpoint resumed on another mesh continues the same
+stream (the reference gets this by drawing the global batch on the host).
+
 Deliberate difference: the reference draws from ``jax.random`` (threefry,
 ``fold_in`` of step and shard); the port draws from numpy's counter-based
-Philox generator keyed by ``SeedSequence([seed, step, shard])``. The
+Philox generator keyed by ``SeedSequence([seed, step, row])``. The
 stream's structure is the reference's, its token values are not.
 """
 from __future__ import annotations
@@ -57,14 +65,14 @@ class SyntheticLM:
             raise ValueError(f"SyntheticLM.batch_at: seed, step and shard "
                              f"must be >= 0, got {self.cfg.seed}, {step}, "
                              f"{shard}")
+        if shard >= n_shards:
+            raise ValueError(f"SyntheticLM.batch_at: shard {shard} of "
+                             f"{n_shards}")
         per = self.cfg.global_batch // n_shards
-        rng = _generator(self.cfg.seed, step, shard)
+        rows = range(shard * per, (shard + 1) * per)
         s = self.cfg.seq_len
         # structured stream: token_{t+1} depends on token_t (learnable)
-        base = rng.integers(0, self.vocab, (per, 1))
-        steps = rng.integers(0, 17, (per, s))
-        tokens = ((base + np.cumsum(steps, axis=1)) % self.vocab
-                  ).astype(np.int32)
+        tokens = np.stack([self._row(step, r, s) for r in rows])
         inputs = tokens[:, :-1] if s > 1 else tokens
         labels = tokens[:, 1:] if s > 1 else tokens
         out: Dict[str, np.ndarray] = {"labels": labels}
@@ -72,12 +80,20 @@ class SyntheticLM:
         if fe in ("audio_frames", "vision_patches"):
             n = labels.shape[1] if fe == "audio_frames" \
                 else self.model_cfg.frontend_len
-            out["embeds"] = _generator(
-                self.cfg.seed, step, shard, _EMBED_STREAM).standard_normal(
-                (per, n, self.model_cfg.d_model), dtype=np.float32)
+            out["embeds"] = np.stack([_generator(
+                self.cfg.seed, step, r, _EMBED_STREAM).standard_normal(
+                (n, self.model_cfg.d_model), dtype=np.float32)
+                for r in rows])
         if fe != "audio_frames":
             out["tokens"] = inputs
         return out
+
+    def _row(self, step: int, row: int, s: int) -> np.ndarray:
+        """Row ``row`` of step ``step``'s global batch: ``s`` int32 tokens."""
+        rng = _generator(self.cfg.seed, step, row)
+        base = rng.integers(0, self.vocab)
+        steps = rng.integers(0, 17, s)
+        return ((base + np.cumsum(steps)) % self.vocab).astype(np.int32)
 
     def iterate(self, start_step: int = 0, shard: int = 0, n_shards: int = 1,
                 ) -> Iterator[Dict[str, np.ndarray]]:

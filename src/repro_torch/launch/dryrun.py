@@ -121,8 +121,7 @@ def cell_arguments(cfg: ModelConfig, shape: ShapeConfig, mesh: Any
     out = {"params": (pshapes, pspecs)}
     if shape.kind == "train":
         out["opt"] = (adamw.state_shapes(pshapes),
-                      adamw.state_specs(pspecs, pshapes, mesh,
-                                        zero1=cfg.zero1))
+                      steps.opt_state_specs(cfg, mesh))
         out["batch"] = specs_mod.train_batch_specs(cfg, shape, mesh)
     elif shape.kind == "prefill":
         out["batch"] = specs_mod.prefill_inputs(cfg, shape, mesh)
@@ -498,19 +497,6 @@ def trace_local(fn, *args, known: Any = (), device_type: str = "meta",
             "seconds": secs}
 
 
-def _sharded_args(lm: LM, shapes: Any, specs: Any) -> Any:
-    """DTensors of a tree of (shape, dtype) leaves laid out by the matching
-    specs on ``lm``'s mesh, local shards on ``lm``'s device: zeros (the
-    ring positions 2**30, the cache's never-written mark), so integer
-    inputs index in range on a real device."""
-    if isinstance(shapes, dict):
-        return {k: _sharded_args(lm, shapes[k], specs[k]) for k in shapes}
-    shape, dtype = shapes
-    t = lm.sharded_empty(tuple(shape), dtype, specs)
-    t._local_tensor.zero_()
-    return t
-
-
 def partitioned_cell(cfg: ModelConfig, shape: ShapeConfig,
                      mesh: LogicalMesh, device: Any = "meta",
                      init: Optional[torch.Generator] = None,
@@ -531,7 +517,9 @@ def partitioned_cell(cfg: ModelConfig, shape: ShapeConfig,
     if init is not None:
         lm.init(init)
     groups = cell_arguments(cfg, shape, mesh)
-    args = {k: _sharded_args(lm, s, sp) for k, (s, sp) in groups.items()
+    # zeros, so integer inputs index in range on a real device; the ring
+    # positions 2**30, the cache's never-written mark
+    args = {k: lm.sharded_zeros(s, sp) for k, (s, sp) in groups.items()
             if k not in ("params", "t")}
     if "cache" in args and "pos" in args["cache"]:
         args["cache"]["pos"]._local_tensor.fill_(2 ** 30)

@@ -18,15 +18,31 @@ one card or none, runs rank 0's local program of a 16x16 or 2x16x16 mesh
 (the partitioned dry run, ``repro_torch.launch.dryrun``); this is the
 port's counterpart of the reference's 512 forced host devices.
 
+The host world is the reference's host mesh made real: where the
+reference trains and serves on ``make_host_mesh()`` (every device of the
+host, one process), the port runs one rank a card over a real process
+group, NCCL on cuda and gloo on the CPU. :func:`host_world` joins the
+world that ``torch.distributed.run`` (torchrun) or :func:`launch` started
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) and yields the ``DeviceMesh`` of the host mesh's shape
+over it; :func:`launch` starts ``n`` ranks of this host through torch's
+elastic launch API, the one torchrun drives. A command started plainly on
+a host of several cards starts one rank a card so (:func:`host_ranks`,
+``launch.train.main``, ``launch.serve.main``); on one card it runs on the
+card without a process group.
+
 Functions, not module-level state: importing this module touches no
 device and starts no process group.
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import math
+import os
+import uuid
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -79,25 +95,174 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]
     return LogicalMesh(tuple(int(n) for n in shape), tuple(axes))
 
 
-def make_host_mesh(model: Optional[int] = None) -> LogicalMesh:
-    """A ``("data", "model")`` mesh over the devices this process uses:
-    every card of the machine on cuda (the port's default device), one
-    device on the CPU."""
+def make_host_mesh(model: Optional[int] = None,
+                   n_devices: Optional[int] = None) -> LogicalMesh:
+    """A ``("data", "model")`` mesh over the devices of this host: every
+    card of the machine on cuda (the port's default device), one device
+    on the CPU; ``n_devices`` (the ranks of a host world) takes the first
+    ``n_devices`` cards, or as many CPU ranks."""
     import torch
 
     from ..device import resolve_device
     dev = resolve_device()
-    if dev.type == "cuda":
-        devices = tuple(torch.device("cuda", i)
-                        for i in range(torch.cuda.device_count()))
-    else:
-        devices = (dev,)
+    n = n_devices or (torch.cuda.device_count() if dev.type == "cuda"
+                      else 1)
+    devices = tuple(torch.device("cuda", i) for i in range(n)) \
+        if dev.type == "cuda" else (dev,) * n
     model = model or 1
     if len(devices) % model:
         raise ValueError(f"model axis {model} does not divide "
                          f"{len(devices)} devices")
     return LogicalMesh((len(devices) // model, model), ("data", "model"),
                        devices)
+
+
+# ------------------------------------------------------------ host world
+def world_env() -> Optional[Tuple[int, int, int]]:
+    """``(rank, world size, local rank)`` of the world that
+    ``torch.distributed.run`` or :func:`launch` started this process in,
+    from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; None for a process
+    started plainly."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    rank = int(os.environ["RANK"])
+    return rank, int(os.environ["WORLD_SIZE"]), int(
+        os.environ.get("LOCAL_RANK", rank))
+
+
+def host_ranks() -> int:
+    """The ranks the host runs: the world's size inside a world, else one
+    a card on cuda (the port's default device) and one on the CPU."""
+    import torch
+
+    from ..device import resolve_device
+    env = world_env()
+    if env is not None:
+        return env[1]
+    return torch.cuda.device_count() if resolve_device().type == "cuda" \
+        else 1
+
+
+# Bound on each collective of a host world: a checkpoint's gather of a
+# full-width leaf and the first step's compiles both fit well inside it.
+HOST_WORLD_TIMEOUT_S = 1800.0
+
+
+@contextlib.contextmanager
+def host_world(n_ranks: Optional[int] = None) -> Iterator[Any]:
+    """Join the world of this host's ranks for the ``with`` block and yield
+    its ``DeviceMesh``: :func:`make_host_mesh`'s shape over the world's
+    ranks, ``(world, 1)`` with axes ("data", "model"). The
+    world is the one ``torch.distributed.run`` or :func:`launch` started
+    (read from the environment); ``n_ranks``, where given, must be its
+    size. On cuda (the port's default device) the backend is NCCL and
+    the rank takes card ``LOCAL_RANK`` (``torch.cuda.set_device``); on
+    the CPU it is gloo. Nothing falls back: a backend that does not come
+    up raises, as does a process that is no rank of a world, or any
+    process group already up (a ``fake`` one included: the host world
+    cannot start beside it, as :func:`fake_world` cannot beside this).
+    The group is destroyed on leaving the block; each collective is
+    bounded by ``HOST_WORLD_TIMEOUT_S``."""
+    import torch
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()!r} process group of "
+                           f"{dist.get_world_size()} ranks is up; a host "
+                           f"world cannot start beside it")
+    env = world_env()
+    if env is None:
+        raise RuntimeError("host_world: this process is no rank of a world "
+                           "(RANK and WORLD_SIZE are unset); start the "
+                           "ranks with torch.distributed.run or "
+                           "repro_torch.launch.mesh.launch")
+    rank, world, local = env
+    if n_ranks is not None and n_ranks != world:
+        raise ValueError(f"host_world: {n_ranks} ranks asked for, the "
+                         f"world has {world}")
+    dev = resolve_device()
+    if dev.type == "cuda":
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank}: local rank {local} has no "
+                               f"card ({torch.cuda.device_count()} here)")
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(
+                                seconds=HOST_WORLD_TIMEOUT_S))
+    try:
+        logical = make_host_mesh(n_devices=world)
+        yield device_mesh(logical, dev.type)
+    finally:
+        dist.destroy_process_group()
+
+
+def data_shard(mesh: Any) -> Tuple[int, int]:
+    """``(shard, n_shards)``: this rank's index along the mesh's data axes
+    and their product, the split of each batch that DTensor's
+    ``Shard(0)`` over those axes gives it; ``(0, 1)`` without a mesh."""
+    if mesh is None:
+        return 0, 1
+    shard, n = 0, 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name in ("pod", "data"):
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+            n *= mesh.size(i)
+    return shard, n
+
+
+def mesh_device(mesh: Any) -> Any:
+    """The device of this rank's shards on ``mesh``: its current card on a
+    cuda mesh, else the CPU."""
+    import torch
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def is_rank0(mesh: Any = None) -> bool:
+    """Whether this process speaks for the world: rank 0 of the world up
+    under ``mesh``, or any process without one."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _rank_main(device: str, entry: Callable[..., Any], args: Tuple) -> Any:
+    """A launched rank: the parent's device setting, then ``entry``."""
+    from ..device import set_default_device
+    set_default_device(device)
+    return entry(*args)
+
+
+def launch(entry: Callable[..., Any], args: Tuple = (),
+           n_ranks: Optional[int] = None) -> Dict[int, Any]:
+    """Start ``n_ranks`` ranks of this host (default :func:`host_ranks`)
+    through torch's elastic launch API, the one ``torch.distributed.run``
+    drives, with a rendezvous on ``127.0.0.1`` (the loopback address, not
+    the name ``localhost``, so that c10d looks up no peer's host name);
+    each rank is a spawned process, on the caller's default device, that
+    runs ``entry(*args)`` (a module-level function: it is pickled) and
+    joins the world with
+    :func:`host_world`. Waits for every rank and returns ``{rank: entry's
+    return value}``; a rank that fails raises ``ChildFailedError`` here
+    once the others are stopped. No process group is started in the
+    calling process."""
+    from torch.distributed.launcher.api import LaunchConfig, elastic_launch
+
+    from ..device import get_default_device
+    n = n_ranks or host_ranks()
+    cfg = LaunchConfig(min_nodes=1, max_nodes=1, nproc_per_node=n,
+                       run_id=f"repro-{uuid.uuid4().hex}",
+                       rdzv_backend="c10d", rdzv_endpoint="127.0.0.1:0",
+                       local_addr="127.0.0.1", max_restarts=0,
+                       start_method="spawn")
+    return elastic_launch(cfg, _rank_main)(get_default_device(), entry,
+                                           tuple(args))
 
 
 @contextlib.contextmanager

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import sys
 import time
 from dataclasses import astuple, dataclass
 from typing import Dict, Hashable, List, Optional
@@ -42,6 +43,7 @@ import torch
 from .. import device as device_mod
 from ..configs import get_config
 from ..models.model import LM
+from . import mesh as mesh_mod
 
 
 @dataclass
@@ -66,27 +68,39 @@ def serve_lm(lm: LM, prompts: torch.Tensor, steps: int, *,
     without a window), then decode ``steps`` tokens greedily from
     t = S. ``feed`` [B, steps], when given, is fed instead of the greedy
     tokens (to hold two runs to the same inputs). Each logits tensor is
-    [B, 1, Vp] f32; the times end in a device synchronize."""
+    [B, 1, Vp] f32; the times end in a device synchronize.
+
+    On the partitioned LM (a host world's mesh) every rank passes the
+    whole ``prompts`` (and ``feed``); each keeps its rows over "data"
+    (:meth:`LM.split_rows`), and the result's tokens and logits are
+    gathered whole on every rank after the timed run."""
     vocab = lm.cfg.vocab
     b, s = prompts.shape
-    _sync(lm.device)
-    t0 = time.perf_counter()
-    lg, cache = lm.prefill_with_cache(prompts, window=window)
-    _sync(lm.device)
-    prefill_s = time.perf_counter() - t0
-    logits = [lg]
-    tok = torch.argmax(lg[:, :, :vocab], dim=-1)
-    fed, outs = [], []
-    t0 = time.perf_counter()
-    for i in range(steps):
-        x = feed[:, i:i + 1] if feed is not None else tok
-        fed.append(x[:, 0])
-        lg, cache = lm.decode_step(cache, x, s + i)
+    prompts = lm.split_rows(prompts)
+    if feed is not None:
+        feed = lm.split_rows(feed)
+    with lm.sharded():
+        _sync(lm.device)
+        t0 = time.perf_counter()
+        lg, cache = lm.prefill_with_cache(prompts, window=window)
+        _sync(lm.device)
+        prefill_s = time.perf_counter() - t0
+        logits = [lg]
         tok = torch.argmax(lg[:, :, :vocab], dim=-1)
-        logits.append(lg)
-        outs.append(tok[:, 0])
-    _sync(lm.device)
-    decode_s = time.perf_counter() - t0
+        fed, outs = [], []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            x = feed[:, i:i + 1] if feed is not None else tok
+            fed.append(x[:, 0])
+            lg, cache = lm.decode_step(cache, x, s + i)
+            tok = torch.argmax(lg[:, :, :vocab], dim=-1)
+            logits.append(lg)
+            outs.append(tok[:, 0])
+        _sync(lm.device)
+        decode_s = time.perf_counter() - t0
+        if lm.mesh is not None:
+            fed, outs, logits = ([t.full_tensor() for t in ts]
+                                 for ts in (fed, outs, logits))
     empty = torch.empty((b, 0), dtype=torch.long, device=lm.device)
     return ServeResult(
         fed=torch.stack(fed, dim=1) if fed else empty,
@@ -344,19 +358,36 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     if args.device is not None:
         device_mod.set_default_device(args.device)
-    dev = device_mod.resolve_device()
+    if mesh_mod.world_env() is None and mesh_mod.host_ranks() > 1:
+        # a plain start on a host of several cards: one rank a card
+        mesh_mod.launch(main, (sys.argv[1:] if argv is None else argv,))
+        return
     cfg = get_config(args.arch)
-    if args.offload_cgra:
+    if args.offload_cgra and (mesh_mod.world_env() or (0,))[0] == 0:
         offload_report(cfg, args.offload_cgra, guide=args.offload_guide,
                        sweep_width=4 if args.offload_guide else 1)
     if args.smoke:
         cfg = cfg.smoke()
-    lm = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    if mesh_mod.world_env() is None:
+        _serve_main(cfg, args, device_mod.resolve_device(), None)
+    else:
+        with mesh_mod.host_world() as dm:
+            _serve_main(cfg, args, mesh_mod.mesh_device(dm), dm)
+
+
+def _serve_main(cfg, args, dev: torch.device, mesh) -> None:
+    """``main``'s serving run: the LM of ``cfg`` from seed 0 (partitioned
+    on ``mesh`` where given), ``args.batch`` seeded prompts of 8 tokens,
+    ``args.steps`` greedy tokens; rank 0 prints."""
+    lm = LM(cfg, dev, mesh=mesh).init(
+        torch.Generator(device=dev).manual_seed(0))
     prompt_len = 8
     prompts = torch.randint(0, cfg.vocab, (args.batch, prompt_len),
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev)
     res = serve_lm(lm, prompts, args.steps, window=args.window)
+    if not mesh_mod.is_rank0(mesh):
+        return
     dt = res.decode_s
     print(f"decoded {args.steps} tokens x {args.batch} requests "
           f"in {dt:.2f}s ({args.batch*args.steps/dt:.1f} tok/s)")

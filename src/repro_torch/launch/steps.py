@@ -20,8 +20,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..models.config import ModelConfig
 from ..models.model import LM, param_shapes, param_specs
-from ..models.sharding import placements
+from ..models.sharding import placements, tp_size
 from ..optim import adamw
 
 Batch = Dict[str, torch.Tensor]
@@ -71,6 +72,27 @@ def value_and_grad(lm: LM, batch: Batch
     return loss_sum, {"ce": loss_sum, "aux": aux_sum}, acc
 
 
+def opt_state_specs(cfg: ModelConfig, mesh: Any) -> Dict[str, Any]:
+    """The AdamW state's specs on ``mesh`` (a logical mesh), keyed as
+    ``adamw.state_shapes``: the reference's ZeRO-1 moments under
+    ``cfg.zero1``, else each parameter's own spec. The one place the
+    state's layout is decided: the train step lays gradients out by it,
+    the training loop places and checkpoints the state by it, and the dry
+    run counts its bytes by it."""
+    return adamw.state_specs(param_specs(cfg, mesh),
+                             param_shapes(cfg, tp_size(mesh)), mesh,
+                             zero1=cfg.zero1)
+
+
+def init_opt_state(lm: LM) -> Dict[str, Any]:
+    """Zero AdamW state for ``lm``'s parameters: ``adamw.init`` on one
+    device; on a mesh zero DTensors laid out by :func:`opt_state_specs`."""
+    if lm.mesh is None:
+        return adamw.init(dict(lm.named_parameters()))
+    return lm.sharded_zeros(adamw.state_shapes(param_shapes(lm.cfg, lm.tp)),
+                            opt_state_specs(lm.cfg, lm.spec_mesh))
+
+
 def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
                     ) -> Callable[[Dict[str, Any], Batch],
                                   Tuple[Dict[str, Any], Dict[str, Any]]]:
@@ -82,10 +104,7 @@ def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
     params = dict(lm.named_parameters())
     grad_layout = None
     if lm.mesh is not None:
-        m = lm.spec_mesh
-        specs = adamw.state_specs(param_specs(lm.cfg, m),
-                                  param_shapes(lm.cfg, lm.tp), m,
-                                  zero1=lm.cfg.zero1)["m"]
+        specs = opt_state_specs(lm.cfg, lm.spec_mesh)["m"]
         grad_layout = {k: placements(sp, lm.mesh) for k, sp in specs.items()}
 
     def train_step(opt_state, batch):

@@ -27,11 +27,13 @@ The partitioned LM, ``LM(cfg, device, mesh=dm)`` with a ``DeviceMesh``
 DTensor laid out by :func:`param_specs` (``sharding.placements``), whose
 local shard lives on ``device``: meta for the partitioned dry run, cuda
 for one rank's shard on the card. Its inputs are DTensors laid out by the
-reference's input specs, and the reference's sharding constraints become
-``redistribute`` calls at the reference's points: the residual stream at
-the forward's and the prefill's entry and at each block's end
-(``_act_spec``), the head as (None, "vocab") before the logits. Plain
-tensors the methods make (positions, masks, scalars) count as replicated
+reference's input specs (:meth:`LM.rows` for a rank's data shard,
+:meth:`LM.split_rows` for a batch every rank holds), and the reference's
+sharding constraints become ``redistribute`` calls at the reference's
+points: the residual stream at the forward's and the prefill's entry and
+at each block's end (``_act_spec``), the head as (None, "vocab") before
+the logits. Plain tensors the methods make (positions, masks, scalars)
+count as replicated: a caller runs them under :meth:`LM.sharded`
 (``implicit_replication``). Without a mesh none of this runs.
 The layers run in a Python loop over the stacked layer axis (the
 reference scans), and ``decode_step`` updates the
@@ -52,6 +54,7 @@ under ``torch.no_grad()`` whatever it is.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -325,6 +328,17 @@ class LM(nn.Module):
                                   run_check=False, shape=torch.Size(shape),
                                   stride=_contiguous_strides(shape))
 
+    def sharded_zeros(self, shapes: Any, specs: Any) -> Any:
+        """Zero DTensors of a tree of ``(shape, dtype)`` leaves, each laid
+        out by the matching leaf of ``specs`` (:meth:`sharded_empty`)."""
+        if isinstance(shapes, dict):
+            return {k: self.sharded_zeros(shapes[k], specs[k])
+                    for k in shapes}
+        shape, dtype = shapes
+        t = self.sharded_empty(tuple(shape), dtype, specs)
+        t._local_tensor.zero_()
+        return t
+
     def _constrain(self, x: torch.Tensor, sp: Spec) -> torch.Tensor:
         """The reference's ``with_sharding_constraint``: ``x`` laid out by
         ``sp`` (a ``redistribute``). Where ``x`` is laid out so already it
@@ -349,6 +363,40 @@ class LM(nn.Module):
         return DTensor.from_local(local, self.mesh, pl, run_check=False,
                                   shape=torch.Size(shape),
                                   stride=_contiguous_strides(shape))
+
+    def rows(self, local: torch.Tensor, batch: int) -> torch.Tensor:
+        """``local``, this rank's rows of a tensor whose leading axis is a
+        batch of ``batch`` rows (a data shard of a training batch), as the
+        tensor the LM reads: on the mesh a DTensor split over the data
+        axes as the residual stream is; ``local`` itself without a mesh."""
+        def make(n):
+            if local.shape[0] != n:
+                raise ValueError(f"LM.rows: {local.shape[0]} local rows of "
+                                 f"a batch of {batch}; this rank holds {n}")
+            return local
+        return self._rows(make, batch)
+
+    def split_rows(self, whole: torch.Tensor) -> torch.Tensor:
+        """``whole``, a batch that every rank holds alike (prompts), as
+        the tensor the LM reads: on the mesh each rank keeps its rows
+        (no collective); ``whole`` itself without a mesh."""
+        if self.mesh is None:
+            return whole
+        from torch.distributed.tensor import distribute_tensor
+        b = whole.shape[0]
+        sp = spec(self.spec_mesh, "batch", *(None,) * (whole.dim() - 1),
+                  batch_size=b)
+        return distribute_tensor(whole, self.mesh, placements(sp, self.mesh),
+                                 src_data_rank=None)
+
+    def sharded(self):
+        """The context a partitioned step runs in: plain tensors made inside
+        it (positions, masks, scalars) count as replicated
+        (``implicit_replication``). Nothing without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
 
     def _gathered(self, h: torch.Tensor) -> torch.Tensor:
         """A normed input as the products after it read it (a block's, the
@@ -397,32 +445,59 @@ class LM(nn.Module):
         ``mix`` one, biases and ``dt_bias`` zero, ``A_log`` zero, ``D`` one,
         matrices N(0, 0.02) with the output projections scaled by
         1/sqrt(2 n_layers), top-level leaves N(0, 0.02)), from
-        ``generator``, which must live on the LM's device. Each leaf is drawn
-        in place (``normal_``, computed in f32 and rounded to the leaf's
-        dtype), so no temporary the size of a leaf exists: at
-        deepseek_moe_16b's widths one expert leaf is 10 GB in bf16. The
-        numbers differ from JAX's: carry a JAX tree across with
-        ``lm_params_from_numpy``. On a mesh each leaf's local shard is
-        drawn so (a rank's own draw, not a slice of one global draw)."""
+        ``generator``, which must live on the LM's device. Without a mesh
+        each leaf is drawn in place (``normal_``, computed in f32 and
+        rounded to the leaf's dtype), so no temporary the size of a leaf
+        exists: at deepseek_moe_16b's widths one expert leaf is 10 GB in
+        bf16. The numbers differ from JAX's: carry a JAX tree across with
+        ``lm_params_from_numpy``.
+
+        On a mesh over a real process group (a host world) every rank
+        draws each whole leaf in the same order, so, one leaf-sized
+        temporary at a time, and keeps its shard: the global weights are
+        one device's from the same seed, bit for bit, whatever the mesh's
+        shape (where a mesh's head plan pads the heads, the padded leaves
+        differ in shape). On the meta device or a ``fake`` world, whose
+        values nothing reads, each rank draws its own local shard."""
+        whole = self._draws_whole()
         for name in param_shapes(self.cfg, self.tp):
             base = name.split(".")[-1]
             leaf = self._leaf(name)
-            if self.mesh is not None:
-                leaf = leaf.to_local()
+            local = leaf.to_local() if self.mesh is not None else leaf
             if not name.startswith("blocks."):
-                leaf.normal_(0.0, 0.02, generator=generator)
+                std = 0.02
             elif base in ("ln1", "ln2", "norm", "mix", "D"):
-                leaf.fill_(1)
+                local.fill_(1)
+                continue
             elif base in ("dt_bias", "A_log") or base.startswith("b"):
-                leaf.zero_()
+                local.zero_()
+                continue
+            elif base in ("wo", "w_down", "w_out"):
+                std = 0.02 / math.sqrt(2 * self.cfg.n_layers)
             else:
-                scale = 0.02
-                if base in ("wo", "w_down", "w_out"):
-                    scale = 0.02 / math.sqrt(2 * self.cfg.n_layers)
-                leaf.normal_(0.0, scale, generator=generator)
+                std = 0.02
+            if whole:
+                from torch.distributed.tensor import distribute_tensor
+                t = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                device=self.device)
+                t.normal_(0.0, std, generator=generator)
+                local.copy_(distribute_tensor(
+                    t, self.mesh, leaf.placements,
+                    src_data_rank=None).to_local())
+                del t
+            else:
+                local.normal_(0.0, std, generator=generator)
         if not self.cfg.is_attention_free:
             self._mask_dead_heads()
         return self
+
+    def _draws_whole(self) -> bool:
+        """Whether :meth:`init` draws whole leaves: on a mesh over a real
+        process group (not the meta device, not a ``fake`` world)."""
+        if self.mesh is None or self.device.type == "meta":
+            return False
+        import torch.distributed as dist
+        return dist.get_backend() != "fake"
 
     def _dead_head_mask(self) -> torch.Tensor:
         """[h_pad] 1.0 for real q-head slots, 0.0 for padding slots."""
@@ -657,10 +732,33 @@ class LM(nn.Module):
         if self.cfg.kv_quant:
             k, ks = layers.quantize_kv(k)
             v, vs = layers.quantize_kv(v)
-            cache["k_scale"][i][:, slots] = ks
-            cache["v_scale"][i][:, slots] = vs
-        cache["k"][i][:, slots] = k
-        cache["v"][i][:, slots] = v
+            self._put(cache["k_scale"], i, ks, slots)
+            self._put(cache["v_scale"], i, vs, slots)
+        self._put(cache["k"], i, k, slots)
+        self._put(cache["v"], i, v, slots)
+
+    def _put(self, buf: torch.Tensor, i: int, val: Any, slots=None) -> None:
+        """``buf[i][:, slots] = val`` (``buf[i] = val`` without ``slots``):
+        a write into layer ``i`` of a cache leaf. On the mesh each rank
+        writes its own shard, ``val`` laid out as the written slice (a
+        leaf's layer axis is never split); DTensor has no rule for
+        ``index_put_`` in some versions and none for ``fill_``."""
+        if self.mesh is not None:
+            from torch.distributed.tensor import Shard
+            if layers.is_sharded(val):
+                # buf's dim d is val's d - 1, or d - 2 past a ring slot
+                # that an int index drops
+                drop = isinstance(slots, int)
+                want = [Shard(p.dim - 1 - (drop and p.dim > 2))
+                        if p.is_shard() else p for p in buf.placements]
+                if tuple(val.placements) != tuple(want):
+                    val = val.redistribute(self.mesh, want)
+                val = val.to_local()
+            buf = buf.to_local()
+        if slots is None:
+            buf[i] = val
+        else:
+            buf[i][:, slots] = val
 
     @torch.no_grad()
     def decode_step(self, cache: Params, tokens: torch.Tensor, t: int,
@@ -696,10 +794,10 @@ class LM(nn.Module):
             if not cfg.is_attention_free:
                 self._write_kv(cache, i, slot, nc["attn_kv"]["k"][:, 0],
                                nc["attn_kv"]["v"][:, 0])
-                cache["pos"][i, :, slot] = t
+                self._put(cache["pos"], i, t, slot)
             if cfg.has_ssm:
                 for key in ("state", "conv_x", "conv_B", "conv_C"):
-                    cache[key][i] = nc["ssm"][key]
+                    self._put(cache[key], i, nc["ssm"][key])
         return self.logits(x), cache
 
     @torch.no_grad()
@@ -739,8 +837,8 @@ class LM(nn.Module):
                 self._write_kv(cache, i, slots,
                                nc["attn_kv"]["k"][:, s - take:s],
                                nc["attn_kv"]["v"][:, s - take:s])
-                cache["pos"][i][:, slots] = src.to(torch.int32)
+                self._put(cache["pos"], i, src.to(torch.int32), slots)
             if cfg.has_ssm:
                 for key in ("state", "conv_x", "conv_B", "conv_C"):
-                    cache[key][i] = nc["ssm"][key]
+                    self._put(cache[key], i, nc["ssm"][key])
         return self.logits(x, keep=1), cache

@@ -18,8 +18,10 @@ used: its clipping, warm-up and decay differ.
 The state's layout on a mesh is the reference's ZeRO-1: ``state_specs``
 gives each moment the parameter's spec plus its first unsharded axis that
 the data-parallel degree divides, split over the data axes
-(``zero1_spec``). The port runs on one card, where the data-parallel
-degree is 1 and the layout is the parameter's own; the dry run
+(``zero1_spec``). On one card the data-parallel degree is 1 and the
+layout is the parameter's own. ``launch.steps.opt_state_specs`` applies
+it to a model: the training loop lays the moments out so on a host
+world's mesh (``launch.steps.init_opt_state``), and the dry run
 (``repro_torch.launch.dryrun``) reads it to count each device's bytes of
 the state on the reference's production meshes.
 """

@@ -1,11 +1,11 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the torch
 examples import neither jax (nor optax, nor ml_dtypes) nor anything of the
 JAX package ``repro``, at run time or in their source (the serving tier,
-the frontend, a spawned shard, the campaign, a guided compile, training
-and the dry run included), and the CDCL worker that the solver pool forks
-imports no torch at all (a child forked after CUDA started must never
-touch CUDA), nor do the numpy guide, the campaign engine and the static
-analysis."""
+the frontend, a spawned shard, the campaign, a guided compile, training,
+the dry run and the ranks of a host world included), and the CDCL worker
+that the solver pool forks imports no torch at all (a child forked after
+CUDA started must never touch CUDA), nor do the numpy guide, the
+campaign engine and the static analysis."""
 import ast
 import os
 import subprocess
@@ -89,6 +89,47 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 print("LOADED:" + ",".join(bad))
 """ % (str(tmp_path), str(tmp_path)))
+    assert last == "LOADED:"
+
+
+def _host_world_rank(ckpt_dir):
+    """A rank of ``test_host_world_loads_no_jax_and_no_reference`` (each
+    spawned rank imports this module for it): trains on the host world's
+    mesh, a checkpoint and a resume included, serves on the partitioned
+    LM, and returns the forbidden modules it has loaded."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh, serve, train
+    from repro_torch.models.model import LM
+    cfg = get_config("hymba_1_5b").smoke()
+    kw = dict(global_batch=2, seq_len=8, ckpt_dir=ckpt_dir, ckpt_every=1,
+              log_every=0)
+    with mesh.host_world(2) as dm:
+        train.train_loop(cfg, steps=1, mesh=dm, **kw)
+        train.train_loop(cfg, steps=2, resume=True, mesh=dm, **kw)
+        lm = LM(cfg, "cpu", mesh=dm).init(torch.Generator().manual_seed(0))
+        serve.serve_lm(lm, torch.zeros((2, 4), dtype=torch.long), 1)
+    return sorted(m for m in sys.modules if _forbidden(m))
+
+
+def test_host_world_loads_no_jax_and_no_reference(tmp_path):
+    """Two gloo ranks started by ``launch.mesh.launch`` (torch's elastic
+    launch API) train and serve over the host world with neither jax, the
+    reference nor ml_dtypes loaded, in the ranks or in the launcher."""
+    last = _run(r"""
+import sys
+sys.path.insert(0, %r)
+import repro_torch
+repro_torch.set_default_device("cpu")
+from repro_torch.launch.mesh import launch
+import test_torch_imports as t
+res = launch(t._host_world_rank, (%r,), n_ranks=2)
+assert sorted(res) == [0, 1]
+bad = sorted(set(m for r in res.values() for m in r)
+             | {m for m in sys.modules if t._forbidden(m)})
+print("LOADED:" + ",".join(bad))
+""" % (os.path.dirname(os.path.abspath(__file__)), str(tmp_path)))
     assert last == "LOADED:"
 
 

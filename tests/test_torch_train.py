@@ -403,6 +403,9 @@ def test_data_pipeline_stateless_and_sharded():
     assert not np.array_equal(s0["tokens"], s1["tokens"])
     assert np.array_equal(data.batch_at(5, shard=1, n_shards=2)["tokens"],
                           s1["tokens"])
+    # shard i of n is rows [i*B/n, (i+1)*B/n) of the global batch
+    for k in ("tokens", "labels"):
+        assert np.array_equal(np.concatenate([s0[k], s1[k]]), a[k])
     it = data.iterate(start_step=5)
     assert np.array_equal(next(it)["tokens"], a["tokens"])
     assert np.array_equal(next(it)["tokens"], data.batch_at(6)["tokens"])
