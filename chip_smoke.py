@@ -94,7 +94,20 @@ step; a planted fault, one rank's cache shard zeroed, read above that
 bound; the same on every rank; 32 tensor-core flash
 launches, each kernel row's ``host_mesh_path_launches``). It prints
 step seconds, peak memory and prefill and decode seconds beside the
-plain path's.
+plain path's. On a card count that does not divide the 4 rows (three
+cards) they are replicated over the ranks, as the reference's spec lays
+them out. Then, on the same world (``host_mesh_batches``), the batches
+the reference's spec replicates: 2 steps at one row (one card) or two
+rows (several) of 4096 tokens against the plain ``train_loop`` on the
+same batches (gates: each step's logged loss and grad norm within one
+unit of the printed digit; the last step's loss within 1e-5 relative,
+its grad norm and the AdamW moments' sum of m^2 and of v within 1e-3, so
+that gradients summed over replicas fail); and row 0 of the prompts
+alone, 8 greedy steps (gates: 32 tensor-core flash launches, each kernel
+row's ``host_mesh_one_row_path_launches``; on one card the plain path's
+tokens for that row, on several the run fed them within total variation
+3e-3). flash_attention is held to its plain version at that row's shape
+(q [1,25,2048,64]) before the serve phase (``flash_one_row``).
 
 The dry run (``dryrun_phase``, after the host world): ``run_cell`` of
 ``repro_torch.launch.dryrun`` for every arch x shape on the 16x16 pod mesh
@@ -213,6 +226,8 @@ HOST_STEPS, HOST_LOSS_RTOL = 3, 1e-3
 # 3.0e-4 a step; the bound is ten times that. Planted faults: after the
 # prefill the last rank zeroes its shard of the named cache leaves, every
 # layer's, and the run is fed the same tokens for HOST_FAULT_STEPS steps.
+# Where the ranks do not divide the prompts, each holds the whole cache
+# and rank 0's copy is the one reported: rank 0 zeroes its copy then.
 # A lost cache shard ("cache": every leaf but the ring positions) must
 # read above HOST_TV on any number of cards; the one-leaf faults are
 # printed beside it, ungated (random weights leave attention near
@@ -221,7 +236,30 @@ HOST_TV = 3e-3
 HOST_FAULTS = {"cache": ("k", "v", "state", "conv_x", "conv_B", "conv_C"),
                "k": ("k",), "v": ("v",), "state": ("state",)}
 HOST_FAULT_GATED, HOST_FAULT_STEPS = "cache", 4
+# then, on the same world, the batches a data axis of one rank or the
+# ranks' data axes do not divide, which the reference's host mesh takes
+# (its spec replicates them): HOST_SMALL_STEPS steps of train_loop(mesh=)
+# at HOST_SMALL_BATCH rows of TRAIN_SEQ tokens (one row on one card, two
+# rows replicated over the ranks on several), each loss within
+# HOST_LOSS_RTOL of the plain train_loop's on the same batches; and row 0
+# of the serve phase's prompts alone, ONE_ROW_STEPS greedy steps, held to
+# the plain path's run of that row (tokens equal on one card, fed its
+# tokens within HOST_TV on several)
+HOST_SMALL_STEPS, HOST_SMALL_BATCH, ONE_ROW_STEPS = 2, (1, 2), 8
+# the small run's gates, tighter than HOST_LOSS_RTOL: each step's loss and
+# grad norm as the log prints them (4 and 3 decimals, LOG_UNITS) within
+# one unit of the last digit of the plain run's; the last step's loss at
+# full precision within HOST_SMALL_LOSS_RTOL (a sixth of the loss's
+# step-to-step movement, 6e-4 of 10.37 on the card); its grad norm and
+# the AdamW moments' fingerprints (sum of m^2 and of v over every leaf)
+# within HOST_SMALL_STATE_RTOL. Gradients summed over dp replicas read dp
+# times the norm, dp^2 times both fingerprints; a skipped step leaves the
+# moments where they were
+HOST_SMALL_LOSS_RTOL, HOST_SMALL_STATE_RTOL = 1e-5, 1e-3
+LOG_UNITS = {"losses": 1e-4, "grad_norms": 1e-3}
 FLASH_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
+# the host world's one-row serve: hymba's prefill attention at batch 1
+ATTN_SHAPE_ONE_ROW = dict(ATTN_SHAPE, B=1)
 # the kernel that flash_attention runs for each dtype
 FLASH_ROUTE = {"torch.float32": "simt", "torch.bfloat16": "tensor_core"}
 FLASH_NOTE = ("route by dtype: bf16 -> tensor_core (flash_fwd_kernel_wgmma: "
@@ -244,7 +282,9 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "moe_shape", "train_path_launches",
                  "dryrun_path_launches", "partitioned_path_launches",
                  "partitioned_shape", "partitioned_moe_path_launches",
-                 "partitioned_moe_shape", "host_mesh_path_launches")
+                 "one_row_shape",
+                 "partitioned_moe_shape", "host_mesh_path_launches",
+                 "host_mesh_one_row_path_launches")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 # the dry run: the sweep's meshes (multi_pod, and None for every arch x
 # shape or the (arch, shape) cells to run). Every cell on both meshes took
@@ -1128,6 +1168,45 @@ def flash_causal_row(torch, gen, shape, arch):
     return row
 
 
+def flash_one_row(torch, gen):
+    """flash_attention at the host world's one-row serve shape
+    (``ATTN_SHAPE_ONE_ROW``: hymba's prefill at batch 1, bf16, causal,
+    window 1024, swapped [B,S,H,D] views) against attention_ref at
+    FLASH_TOL, timed beside its plain version and its bound; every launch
+    on the tensor-core route. Returns the row."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    dev = torch.device("cuda", 0)
+    B, Hq, Hkv, S, D = (ATTN_SHAPE_ONE_ROW[k]
+                        for k in ("B", "Hq", "Hkv", "S", "D"))
+    window, tol = 1024, FLASH_TOL["torch.bfloat16"]
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    err, ok = _close(got, want, tol, tol)
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention bf16 one row: max abs err "
+                             f"{err} beyond atol=rtol={tol}")
+    del got, want
+    _check_route(flash_attention, before, "tensor_core")
+    bound = flash_bound_ms(B, Hq, Hkv, S, D, window, q.element_size(),
+                           BF16_TENSOR_FLOPS)
+    row = {"shape": f"q [{B},{Hq},{S},{D}] k/v [{B},{Hkv},{S},{D}] "
+                    f"bfloat16 window {window} causal, swapped [B,S,H,D] "
+                    f"views",
+           "max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: flash_attention(
+               q, k, v, causal=True, window=window)),
+           "plain_ms": cuda_ms(torch, lambda: attention_ref(
+               q, k, v, causal=True, window=window), reps=10),
+           "bound_ms": bound[0], "bound_by": bound[1]}
+    emit("flash_attention_one_row", tolerance=tol, **row)
+    return row
+
+
 def lm_kernel_phase(torch):
     """flash_attention and ssd_scan against their plain versions at
     hymba_1_5b's shapes (and bf16 attention at minitron_8b's and
@@ -1136,7 +1215,8 @@ def lm_kernel_phase(torch):
     Returns the kernels-line entries, which hold the shapes the served
     model gives them: bf16 with the 1024 window for attention, bf16 x/B/C
     at the config's chunk of 256 for the scan; and deepseek_moe_16b's
-    attention row (MHA, D = 128, causal)."""
+    attention row (MHA, D = 128, causal); the attention row carries its
+    check at the host world's one-row serve shape (``one_row_shape``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
@@ -1201,6 +1281,7 @@ def lm_kernel_phase(torch):
     flash_causal_row(torch, gen, ATTN_SHAPE_D128, "minitron_8b")
     out["flash_attention_moe"] = flash_causal_row(torch, gen, ATTN_SHAPE_MOE,
                                                   "deepseek_moe_16b")
+    out["flash_attention"]["one_row_shape"] = flash_one_row(torch, gen)
     emit("flash_routes", route_launches=flash_attention.route_launches,
          layout_copies=flash_attention.layout_copies)
     b, s, h, p, n = (SSD_SHAPE[k] for k in ("b", "s", "h", "p", "n"))
@@ -2549,15 +2630,15 @@ def train_phase(torch, smi):
 
 
 # ---------------------------------------------------------- host world
-def _planted(lm, leaves):
+def _planted(lm, leaves, victim):
     """``lm.prefill_with_cache`` with a planted fault: after the prefill
-    the last rank zeroes its shard of each cache leaf in ``leaves``."""
+    rank ``victim`` zeroes its shard of each cache leaf in ``leaves``."""
     import torch.distributed as dist
     real = type(lm).prefill_with_cache
 
     def prefill_with_cache(*args, **kwargs):
         lg, cache = real(lm, *args, **kwargs)
-        if dist.get_rank() == dist.get_world_size() - 1:
+        if dist.get_rank() == victim:
             for leaf in leaves:
                 cache[leaf]._local_tensor.zero_()
         return lg, cache
@@ -2579,19 +2660,22 @@ def _fed_tv(got, want, vocab):
     return tvs, same
 
 
-def host_mesh_rank(ckpt_dir, fed):
+def host_mesh_rank(ckpt_dir, fed, one_row_fed, small_batch):
     """One rank of the host world (a spawned process; every rank runs
     this). Trains hymba_1_5b at its published widths for HOST_STEPS steps
-    of ``train_loop(mesh=)`` at the train phase's 4 x 4096, its log lines
-    timed; restores the run's checkpoint on the plain path (a one-device
-    LM and AdamW state on this rank's card, rank 0) and holds every leaf
-    to the mesh run's, bit for bit; then serves the serve phase's prompts
-    through ``serve_lm`` on the partitioned LM (flash prefill, 32 greedy
-    steps), the kernels' launches counted; on more than one rank also fed
-    ``fed`` (the serve phase's tokens), its logits returned; and, fed the
-    same, once for each planted fault (:func:`_planted`) for
-    HOST_FAULT_STEPS steps. Rank 0 returns what it saw, the others
-    None."""
+    of ``train_loop(mesh=)`` at the train phase's 4 x 4096 (replicated
+    over ranks that do not divide 4), its log lines timed; restores the
+    run's checkpoint on the plain path (a one-device LM and AdamW state on
+    this rank's card, rank 0) and holds every leaf to the mesh run's, bit
+    for bit; trains HOST_SMALL_STEPS steps at ``small_batch`` rows, its
+    log lines timed; then serves the serve phase's prompts through
+    ``serve_lm`` on the partitioned LM (flash prefill, 32 greedy steps),
+    the kernels' launches counted; on more than one rank also fed ``fed``
+    (the serve phase's tokens), its logits returned; then row 0 of the
+    prompts alone for ONE_ROW_STEPS steps, the launches counted (on more
+    than one rank also fed ``one_row_fed``); and, fed ``fed``, once for
+    each planted fault (:func:`_planted`) for HOST_FAULT_STEPS steps.
+    Rank 0 returns what it saw, the others None."""
     import shutil
     import torch
     import torch.distributed as dist
@@ -2666,6 +2750,22 @@ def host_mesh_rank(ckpt_dir, fed):
             del state, plain, want
             shutil.rmtree(ckpt_dir, ignore_errors=True)
         torch.cuda.empty_cache()
+        # a batch of one row on one rank, or one the ranks do not divide
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock = _LineClock()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(clock):
+            res = train_loop(cfg, steps=HOST_SMALL_STEPS,
+                             global_batch=small_batch, seq_len=TRAIN_SEQ,
+                             seed=0, mesh=dm, log_every=1)
+        torch.cuda.synchronize(dev)
+        times = [t0] + [t for t, _ in clock.lines]
+        out.update(small=_small_run(res, clock),
+                   small_step_s=[b - a for a, b in zip(times, times[1:])],
+                   small_max_memory_allocated=torch.cuda.max_memory_allocated(
+                       dev))
+        del res
+        torch.cuda.empty_cache()
         # serving: the serve phase's LM (seed 0, flash) and prompts
         scfg = cfg.replace(attn_impl="flash")
         lm = LM(scfg, dev, mesh=dm).init(
@@ -2677,9 +2777,16 @@ def host_mesh_rank(ckpt_dir, fed):
                                      device=dev).manual_seed(seed),
                                  device=dev)
 
-        # warm-up on every row (a batch of one on a mesh whose data axis
-        # is 1 cannot be flattened by DTensor: ROADMAP, queue C)
-        serve_lm(lm, prompts(2)[:, :256], 2)
+        def layout(b):
+            # the LM's layout of a batch of b rows, train_loop's too (its
+            # batches go through LM.rows, the same rule)
+            pl = lm.split_rows(torch.zeros((b, 1), device=dev)).placements
+            return "split" if any(p.is_shard(0) for p in pl) \
+                else "replicated"
+        out.update(batch_layout=layout(TRAIN_BATCH),
+                   small_batch_layout=layout(small_batch))
+        # warm-up as the serve phase's
+        serve_lm(lm, prompts(2)[:1, :256], 2)
         torch.cuda.reset_peak_memory_stats(dev)
         for f in counters.values():
             f.launches = 0
@@ -2701,10 +2808,36 @@ def host_mesh_rank(ckpt_dir, fed):
                               feed=torch.tensor(fed, device=dev))
             out["forced_logits"] = [lg.cpu() for lg in forced.logits]
             del forced
+        # a batch of one: row 0 of the same prompts
+        torch.cuda.reset_peak_memory_stats(dev)
+        for f in counters.values():
+            f.launches = 0
+        reset_counts()
+        one = serve_lm(lm, prompts(1)[:1], ONE_ROW_STEPS)
+        out.update(one_row_launches={n: f.launches
+                                     for n, f in counters.items()},
+                   one_row_flash_route_launches=dict(flash.route_launches),
+                   one_row_tokens=one.tokens.cpu().tolist(),
+                   one_row_logits_finite=all(
+                       bool(torch.isfinite(lg).all()) for lg in one.logits),
+                   one_row_prefill_s=one.prefill_s,
+                   one_row_decode_s=one.decode_s,
+                   one_row_max_memory_allocated=torch.cuda
+                   .max_memory_allocated(dev))
+        if dist.get_world_size() > 1:
+            forced = serve_lm(lm, prompts(1)[:1], ONE_ROW_STEPS,
+                              feed=torch.tensor(one_row_fed, device=dev))
+            out["one_row_forced_logits"] = [lg.cpu() for lg in forced.logits]
+            del forced
         fault_feed = torch.tensor(fed, device=dev)[:, :HOST_FAULT_STEPS]
         out["fault_logits"] = {}
+        # the last rank's rows where the prompts are split over the
+        # ranks; rank 0's copy, the one gathered, where they are
+        # replicated
+        split = SERVE_BATCH % dist.get_world_size() == 0
+        out["fault_rank"] = dist.get_world_size() - 1 if split else 0
         for fault, leaves in HOST_FAULTS.items():
-            lm.prefill_with_cache = _planted(lm, leaves)
+            lm.prefill_with_cache = _planted(lm, leaves, out["fault_rank"])
             try:
                 bad = serve_lm(lm, prompts(1), HOST_FAULT_STEPS,
                                feed=fault_feed)
@@ -2715,9 +2848,14 @@ def host_mesh_rank(ckpt_dir, fed):
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, [out["final_loss"],
                                        out["final_grad_norm"], out["tokens"],
-                                       out["serve_launches"]])
+                                       out["serve_launches"],
+                                       # rank 0 alone prints the log
+                                       {k: v for k, v in out["small"].items()
+                                        if k not in LOG_UNITS},
+                                       out["one_row_tokens"],
+                                       out["one_row_launches"]])
         out["every_rank"] = every
-        del lm, sres
+        del lm, sres, one
     return out if rank == 0 else None
 
 
@@ -2737,24 +2875,29 @@ def host_mesh_phase(torch, smi, train, served):
     each step's softmax within HOST_TV of it; the planted lost cache
     shard reads above HOST_TV; the ranks agree; no group
     up here after. Prints step seconds, peak memory, prefill and decode
-    seconds beside the plain path's. Returns the kernels' launch counts
-    of the served run."""
+    seconds beside the plain path's. A card count that does not divide
+    the train phase's 4 rows trains them replicated, as the reference's
+    spec lays them out. Then the batches of ``host_mesh_batches``: one or
+    two rows trained (:func:`host_small_plain` is the plain run they are
+    held to), and one row served, held to ``served["one_row"]`` as the
+    four rows are to ``served``. Returns the kernels' launch counts of
+    the served run of four rows and of one."""
     import shutil
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     n_cards = torch.cuda.device_count()
-    if TRAIN_BATCH % n_cards:
-        raise AssertionError(f"host_mesh: the train phase's batch of "
-                             f"{TRAIN_BATCH} does not split over "
-                             f"{n_cards} cards")
+    small_batch = HOST_SMALL_BATCH[n_cards > 1]
+    small = host_small_plain(torch, small_batch)
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_host_mesh")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        ranks = mesh_mod.launch(host_mesh_rank, (ckpt_dir, served["fed"]),
+        ranks = mesh_mod.launch(host_mesh_rank,
+                                (ckpt_dir, served["fed"],
+                                 served["one_row"]["fed"], small_batch),
                                 n_ranks=n_cards)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2782,6 +2925,7 @@ def host_mesh_phase(torch, smi, train, served):
          world=out["world"], backend=out["backend"], mesh=out["mesh"],
          rank0_device=out["device"], launch_wall_s=wall_s,
          steps=HOST_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+         batch_layout=out["batch_layout"],
          reduced={"global_batch": "256 (train_4k) -> 4, the train phase's "
                                   "cut"},
          losses=out["losses"], plain_losses=want_losses,
@@ -2808,7 +2952,7 @@ def host_mesh_phase(torch, smi, train, served):
          fed_tv_bound=HOST_TV, fed_greedy_same=forced_same,
          fault_tv_per_step=fault_tv,
          fault_max_tv={k: max(v) for k, v in fault_tv.items()},
-         fault_gated=HOST_FAULT_GATED,
+         fault_gated=HOST_FAULT_GATED, fault_rank=out["fault_rank"],
          same_on_every_rank=same_on_every_rank,
          group_up_here=dist.is_available() and dist.is_initialized())
     fails = []
@@ -2841,7 +2985,133 @@ def host_mesh_phase(torch, smi, train, served):
         fails.append("a process group is up in the smoke's process")
     if fails:
         raise AssertionError("host_mesh: " + "; ".join(fails))
-    return out["serve_launches"]
+    return out["serve_launches"], host_mesh_batches(
+        cfg, n_cards, out, small, served["one_row"])
+
+
+def host_small_plain(torch, batch):
+    """The plain run that the host world's small batch is held to:
+    HOST_SMALL_STEPS steps of one-device ``train_loop`` at ``batch`` rows
+    of TRAIN_SEQ tokens on cuda:0, the train phase's seed, its log lines
+    timed (the first gap holds the LM's init). Returns what
+    :func:`_small_run` reads of it, the step seconds and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = _LineClock()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        res = train_loop(get_config(TRAIN_ARCH), steps=HOST_SMALL_STEPS,
+                         global_batch=batch, seq_len=TRAIN_SEQ, seed=0,
+                         device=dev, log_every=1)
+    torch.cuda.synchronize()
+    times = [t0] + [t for t, _ in clock.lines]
+    out = {**_small_run(res, clock),
+           "step_s": [b - a for a, b in zip(times, times[1:])],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_run(res, clock):
+    """What the small run is gated on: each step's loss and grad norm as
+    the log printed them (``clock``), the last step's at full precision
+    (``res``, ``train_loop``'s return), and the fingerprints of its AdamW
+    moments: sum of m^2 and sum of v over every leaf, in f64 (on a mesh
+    each leaf is gathered, a collective: every rank calls this)."""
+    fp = {"m_sq": 0.0, "v_sum": 0.0}
+    for part, key in (("m", "m_sq"), ("v", "v_sum")):
+        for _, t in sorted(res["opt_state"][part].items()):
+            if hasattr(t, "full_tensor"):
+                t = t.full_tensor()
+            t = t.double()
+            fp[key] += float(t.square().sum() if part == "m" else t.sum())
+            del t
+    return {"losses": [float(ln.split("loss=")[1].split()[0])
+                       for _, ln in clock.lines],
+            "grad_norms": [float(ln.split("gnorm=")[1].split()[0])
+                           for _, ln in clock.lines],
+            "final_loss": res["loss"], "final_grad_norm": res["grad_norm"],
+            **fp}
+
+
+def host_mesh_batches(cfg, n_cards, out, small, one_row):
+    """Gates and prints the host world's batches that the reference's
+    spec replicates (``host_mesh_rank``'s small batch and row): each
+    step's logged loss and grad norm within LOG_UNITS of the plain run's
+    (``small``), the last step's loss within HOST_SMALL_LOSS_RTOL and its
+    grad norm and moments' fingerprints within HOST_SMALL_STATE_RTOL;
+    one flash launch a layer on the tensor cores for the row; on one card its tokens equal
+    the plain path's run of the row (``one_row``), on several the run fed
+    its tokens within HOST_TV of it (the ranks' agreement on all of it is
+    gated with ``host_mesh_phase``'s). Returns the kernels' launch counts
+    of the served row."""
+    got = out["small"]
+    logged = {k: [abs(a - b) for a, b in zip(got[k], small[k])]
+              for k in LOG_UNITS}
+    rel = {k: abs(got[k] - small[k]) / abs(small[k])
+           for k in ("final_loss", "final_grad_norm", "m_sq", "v_sum")}
+    rtol = {"final_loss": HOST_SMALL_LOSS_RTOL,
+            "final_grad_norm": HOST_SMALL_STATE_RTOL,
+            "m_sq": HOST_SMALL_STATE_RTOL, "v_sum": HOST_SMALL_STATE_RTOL}
+    flash = out["one_row_launches"]["flash_attention"]
+    routes = out["one_row_flash_route_launches"]
+    tokens_equal = out["one_row_tokens"] == one_row["tokens"]
+    tvs, forced_same = [], None
+    if "one_row_forced_logits" in out:
+        tvs, forced_same = _fed_tv(out["one_row_forced_logits"],
+                                   one_row["logits"], cfg.vocab)
+    batch = HOST_SMALL_BATCH[n_cards > 1]
+    emit("host_mesh_batches", arch=cfg.name, cards=n_cards,
+         mesh=out["mesh"], train_global_batch=batch, seq_len=TRAIN_SEQ,
+         train_layout=out["small_batch_layout"], steps=HOST_SMALL_STEPS,
+         **{k: got[k] for k in got}, **{"plain_" + k: small[k] for k in got},
+         logged_abs_err=logged, logged_tol=LOG_UNITS, rel_err=rel,
+         rtol=rtol, step_s=out["small_step_s"],
+         plain_step_s=small["step_s"],
+         step_s_note="the first gap holds the LM's init and the data",
+         max_memory_allocated=out["small_max_memory_allocated"],
+         plain_max_memory_allocated=small["max_memory_allocated"],
+         serve_batch=1, prompt_len=SERVE_PROMPT, decode_steps=ONE_ROW_STEPS,
+         serve_launches=out["one_row_launches"],
+         flash_route_launches=routes,
+         prefill_s=out["one_row_prefill_s"],
+         plain_prefill_s=one_row["prefill_s"],
+         decode_s=out["one_row_decode_s"], plain_decode_s=one_row["decode_s"],
+         serve_max_memory_allocated=out["one_row_max_memory_allocated"],
+         plain_serve_max_memory_allocated=one_row["max_memory_allocated"],
+         tokens=out["one_row_tokens"], plain_tokens=one_row["tokens"],
+         tokens_equal_plain=tokens_equal, fed_tv_per_step=tvs,
+         fed_max_tv=max(tvs) if tvs else None, fed_tv_bound=HOST_TV,
+         fed_greedy_same=forced_same)
+    fails = []
+    for k, unit in LOG_UNITS.items():
+        # one unit of the printed digit, and the float slack of its
+        # difference
+        if len(got[k]) != HOST_SMALL_STEPS or \
+                max(logged[k]) > unit * (1 + 1e-6):
+            fails.append(f"logged {k} at {batch} rows {got[k]} against "
+                         f"{small[k]}")
+    for k, tol in rtol.items():
+        if not rel[k] <= tol:
+            fails.append(f"{k} at {batch} rows {got[k]} against {small[k]} "
+                         f"(relative {rel[k]}, tolerance {tol})")
+    if not out["one_row_logits_finite"]:
+        fails.append("non-finite served logits")
+    if flash != cfg.n_layers or routes.get("tensor_core") != cfg.n_layers:
+        fails.append(f"flash launched {flash} times ({routes}) for one row, "
+                     f"expected {cfg.n_layers} on the tensor cores")
+    if n_cards == 1 and not tokens_equal:
+        fails.append("the row's tokens differ from the plain path's")
+    if n_cards > 1 and not max(tvs) < HOST_TV:
+        fails.append(f"fed the plain path's tokens, the row's softmax is "
+                     f"{tvs} from it (total variation)")
+    if fails:
+        raise AssertionError("host_mesh_batches: " + "; ".join(fails))
+    return out["one_row_launches"]
 
 
 # ------------------------------------------------------------- dry run
@@ -3432,6 +3702,16 @@ def examples_phase(smi):
          portfolio_wall_s=out["portfolio_mapper_torch"][3])
 
 
+def one_row_served(torch, lm, prompts):
+    """The plain path's run that the host world's batch of one is held
+    to: row 0 of the serve phase's ``prompts`` alone through ``serve_lm``
+    on the serve phase's LM, ONE_ROW_STEPS greedy steps (``_served``)."""
+    from repro_torch.launch.serve import serve_lm
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm(lm, prompts[:1], ONE_ROW_STEPS)
+    return _served(res, torch.cuda.max_memory_allocated())
+
+
 def _served(res, peak):
     """What the host world is held to of a serve phase's run, on the
     host."""
@@ -3448,9 +3728,11 @@ def host_mesh_main(torch, smi) -> int:
     for a machine of several cards; the last line as the full run's."""
     from repro_torch.kernels import _cuda
     _cuda.build(["flash_attention"])
-    lm, _, res, _, peak = serve_phase(torch, "hymba_1_5b", smi)
+    flash_one_row(torch, torch.Generator(device="cuda").manual_seed(3))
+    lm, prompts, res, _, peak = serve_phase(torch, "hymba_1_5b", smi)
     served = _served(res, peak)
-    del lm, res
+    served["one_row"] = one_row_served(torch, lm, prompts)
+    del lm, prompts, res
     torch.cuda.empty_cache()
     _, trained = train_main_phase(torch, smi)
     torch.cuda.empty_cache()
@@ -3520,10 +3802,11 @@ def main() -> int:
     lm_times = lm_kernel_phase(torch)
     flash_edge_phase(torch)
     torch.cuda.empty_cache()
-    lm, _, res, served, peak = serve_phase(torch, "hymba_1_5b", smi)
+    lm, prompts, res, served, peak = serve_phase(torch, "hymba_1_5b", smi)
     launches.update({k: served[k] for k in ("flash_attention", "ssd_scan")})
     hymba_served = _served(res, peak)
-    del lm, res
+    hymba_served["one_row"] = one_row_served(torch, lm, prompts)
+    del lm, prompts, res
     torch.cuda.empty_cache()
     serve_agreement_phase(torch, "float32")
     torch.cuda.empty_cache()
@@ -3541,7 +3824,8 @@ def main() -> int:
     moe_f32_agreement_phase(torch)
     torch.cuda.empty_cache()
     train_launches, trained = train_phase(torch, smi)
-    host_launches = host_mesh_phase(torch, smi, trained, hymba_served)
+    host_launches, one_row_launches = host_mesh_phase(torch, smi, trained,
+                                                      hymba_served)
     t0 = time.perf_counter()
     dry_launches, sweep = dryrun_phase(torch, smi)
     (part_launches, part_flash), (moe_part_launches, moe_part_flash) = \
@@ -3578,6 +3862,7 @@ def main() -> int:
         t["partitioned_path_launches"] = part_launches[name]
         t["partitioned_moe_path_launches"] = moe_part_launches[name]
         t["host_mesh_path_launches"] = host_launches[name]
+        t["host_mesh_one_row_path_launches"] = one_row_launches[name]
         if name == "flash_attention":
             t["note"] = FLASH_NOTE
             t["partitioned_shape"] = part_flash

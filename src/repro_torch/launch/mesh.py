@@ -200,11 +200,16 @@ def host_world(n_ranks: Optional[int] = None) -> Iterator[Any]:
         dist.destroy_process_group()
 
 
-def data_shard(mesh: Any) -> Tuple[int, int]:
+def data_shard(mesh: Any, batch: int) -> Tuple[int, int]:
     """``(shard, n_shards)``: this rank's index along the mesh's data axes
-    and their product, the split of each batch that DTensor's
-    ``Shard(0)`` over those axes gives it; ``(0, 1)`` without a mesh."""
-    if mesh is None:
+    and their product, the split of a batch of ``batch`` rows that
+    DTensor's ``Shard(0)`` over those axes gives it; ``(0, 1)`` without a
+    mesh, and where the data axes do not divide ``batch``: there
+    ``spec(..., "batch", batch_size=batch)`` replicates the batch, as the
+    reference's does, and every rank holds all of it."""
+    from ..models.sharding import spec
+    if mesh is None or spec(logical_mesh(mesh), "batch",
+                            batch_size=batch)[0] is None:
         return 0, 1
     shard, n = 0, 1
     for i, name in enumerate(mesh.mesh_dim_names):

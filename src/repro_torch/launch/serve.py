@@ -42,6 +42,7 @@ import torch
 
 from .. import device as device_mod
 from ..configs import get_config
+from ..models.layers import _laid_out, is_sharded
 from ..models.model import LM
 from . import mesh as mesh_mod
 
@@ -58,6 +59,20 @@ class ServeResult:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _greedy(lg: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The greedy tokens [B, 1] of logits [B, 1, Vp] over the first
+    ``vocab`` entries. Logits of the partitioned LM whose vocabulary is
+    split over a mesh axis of several ranks are gathered over it first:
+    DTensor's own argmax of split logits fails where a rank holds one
+    row (torch 2.13)."""
+    if is_sharded(lg):
+        from torch.distributed.tensor import Replicate
+        mesh = lg.device_mesh
+        lg = _laid_out(lg, [Replicate() if p.is_shard(2) and mesh.size(i) > 1
+                            else p for i, p in enumerate(lg.placements)])
+    return torch.argmax(lg[:, :, :vocab], dim=-1)
 
 
 def serve_lm(lm: LM, prompts: torch.Tensor, steps: int, *,
@@ -86,14 +101,14 @@ def serve_lm(lm: LM, prompts: torch.Tensor, steps: int, *,
         _sync(lm.device)
         prefill_s = time.perf_counter() - t0
         logits = [lg]
-        tok = torch.argmax(lg[:, :, :vocab], dim=-1)
+        tok = _greedy(lg, vocab)
         fed, outs = [], []
         t0 = time.perf_counter()
         for i in range(steps):
             x = feed[:, i:i + 1] if feed is not None else tok
             fed.append(x[:, 0])
             lg, cache = lm.decode_step(cache, x, s + i)
-            tok = torch.argmax(lg[:, :, :vocab], dim=-1)
+            tok = _greedy(lg, vocab)
             logits.append(lg)
             outs.append(tok[:, 0])
         _sync(lm.device)

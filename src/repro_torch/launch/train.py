@@ -20,7 +20,8 @@ Runs on ``--device`` (cuda unless told otherwise); nothing falls back to
 the CPU. ``train_loop(..., mesh=)`` is the reference's host-mesh path: on
 a ``DeviceMesh`` of a host world (``launch.mesh.host_world``: one rank a
 card over NCCL, or gloo ranks on the CPU) every rank trains the
-partitioned LM on its "data" shard of each batch, and the checkpoint's
+partitioned LM on its "data" shard of each batch (on all of it where the
+data axes do not divide the global batch), and the checkpoint's
 ``mesh`` is the real ``[dp, tp]``. The CLI runs so under
 ``torch.distributed.run``, and started plainly on a host of several cards
 it starts one rank a card itself; on one card it runs the one-device path
@@ -81,7 +82,9 @@ def state_specs(lm: LM) -> Dict[str, Any]:
 def _batch(lm: LM, local: Dict[str, Any], global_batch: int,
            dev: torch.device) -> Dict[str, torch.Tensor]:
     """A batch on ``dev``; on a mesh each array (this rank's rows) becomes
-    a DTensor whose batch axis is split over the data axes."""
+    a DTensor whose batch axis is split over the data axes, or replicated
+    where they do not divide ``global_batch`` (every rank's rows are then
+    the whole batch)."""
     return {k: lm.rows(torch.from_numpy(v).to(dev), global_batch)
             for k, v in local.items()}
 
@@ -110,19 +113,21 @@ def train_loop(cfg, *, steps: int = 20, global_batch: int = 8,
     ``launch.mesh.host_world``) trains the partitioned LM on it, as the
     reference does on its mesh: every rank of the world calls this with
     the same arguments, draws its data shard of each batch
-    (``SyntheticLM.batch_at(step, shard, n_shards)``; a global batch the
-    data axes do not divide raises ``ValueError``), and runs the train step
-    whose gradients are reduce-scattered onto ZeRO-1 moments (all-reduced
-    without ``cfg.zero1``). The weights are one device's from the same
-    seed, so the run is the one-device run up to the order of reductions;
+    (``SyntheticLM.batch_at(step, shard, n_shards)``), and runs the train
+    step whose gradients are reduce-scattered onto ZeRO-1 moments
+    (all-reduced without ``cfg.zero1``). A global batch that the data axes
+    do not divide is replicated over them, as the reference's
+    ``spec(..., batch_size=)`` falls back: every rank draws the whole
+    batch (``data_shard`` gives ``(0, 1)``) and computes the whole step,
+    its gradients whole on every rank, so each moment's data shard is a
+    local slice of them with no reduction. The weights are one device's
+    from the same seed, so the run is the one-device run up to the order
+    of reductions;
     ``loss`` and ``grad_norm`` are the same on every rank, rank 0 prints
     the log lines, the checkpoint records the mesh's ``[dp, tp]`` and
     ``resume`` restores onto this mesh whatever mesh wrote it. ``params``
     and ``opt_state`` are then DTensors, shards on this rank's device."""
-    shard, n_shards = mesh_mod.data_shard(mesh)
-    if global_batch % n_shards:
-        raise ValueError(f"train_loop: global batch {global_batch} does not "
-                         f"split over the mesh's {n_shards} data shards")
+    shard, n_shards = mesh_mod.data_shard(mesh, global_batch)
     if device is not None:
         dev = torch.device(device)
     else:

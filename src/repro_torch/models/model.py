@@ -28,7 +28,8 @@ DTensor laid out by :func:`param_specs` (``sharding.placements``), whose
 local shard lives on ``device``: meta for the partitioned dry run, cuda
 for one rank's shard on the card. Its inputs are DTensors laid out by the
 reference's input specs (:meth:`LM.rows` for a rank's data shard,
-:meth:`LM.split_rows` for a batch every rank holds), and the reference's
+:meth:`LM.split_rows` for a batch every rank holds; a batch of one row
+replicated, :meth:`LM._batch_spec`), and the reference's
 sharding constraints become ``redistribute`` calls at the reference's
 points: the residual stream at the forward's and the prefill's entry and
 at each block's end (``_act_spec``), the head as (None, "vocab") before
@@ -356,7 +357,7 @@ class LM(nn.Module):
         if self.mesh is None:
             return make(b)
         from torch.distributed.tensor import DTensor
-        sp = spec(self.spec_mesh, "batch", batch_size=b)
+        sp = self._batch_spec(b)
         local = make(shard_shape((b,), sp, self.spec_mesh)[0])
         pl = placements(sp + (None,) * (local.dim() - 1), self.mesh)
         shape = (b,) + tuple(local.shape[1:])
@@ -383,9 +384,7 @@ class LM(nn.Module):
         if self.mesh is None:
             return whole
         from torch.distributed.tensor import distribute_tensor
-        b = whole.shape[0]
-        sp = spec(self.spec_mesh, "batch", *(None,) * (whole.dim() - 1),
-                  batch_size=b)
+        sp = self._batch_spec(whole.shape[0], *(None,) * (whole.dim() - 1))
         return distribute_tensor(whole, self.mesh, placements(sp, self.mesh),
                                  src_data_rank=None)
 
@@ -407,9 +406,7 @@ class LM(nn.Module):
         sequence. The identity without a mesh."""
         if self.mesh is None:
             return h
-        b = h.shape[0]
-        return self._constrain(h, spec(self.spec_mesh, "batch", None, None,
-                                       batch_size=b))
+        return self._constrain(h, self._batch_spec(h.shape[0], None, None))
 
     def _scattered(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """A row-parallel output (a partial sum over "model") laid out as
@@ -420,8 +417,8 @@ class LM(nn.Module):
         mesh."""
         if self.mesh is None:
             return a
-        back = placements(spec(self.spec_mesh, "batch", None, None,
-                               batch_size=x.shape[0]), self.mesh)
+        back = placements(self._batch_spec(x.shape[0], None, None),
+                          self.mesh)
         return _ToResidual.apply(a, self.mesh, tuple(x.placements), back)
 
     def _act_spec(self, x: torch.Tensor) -> Spec:
@@ -430,7 +427,25 @@ class LM(nn.Module):
         b, s, _ = x.shape
         seq_ax = "model" if (self.cfg.seq_shard and s > 1
                              and s % self.tp == 0) else None
-        return spec(self.spec_mesh, "batch", seq_ax, None, batch_size=b)
+        return self._batch_spec(b, seq_ax, None)
+
+    def _batch_spec(self, b: int, *axes) -> Spec:
+        """``spec(mesh, "batch", *axes, batch_size=b)``, the spec of a
+        tensor whose leading axis is a batch of ``b`` rows, with a batch of
+        one row replicated. ``spec`` splits one row only over data axes of
+        one rank, where a split and a replicated row are the same data; but
+        DTensor refuses to fold a split dimension of size 1 into the next
+        (``x @ wq`` viewed as [S, D]), and reshapes a replicated one. The
+        cache of one row is laid out so too (:meth:`init_cache`)."""
+        return self._one_row(spec(self.spec_mesh, "batch", *axes,
+                                  batch_size=b), b)
+
+    @staticmethod
+    def _one_row(sp: Spec, b: int, axis: int = 0) -> Spec:
+        """``sp`` with its batch entry (at ``axis``) replicated where the
+        batch is of one row (``b == 1``), the rule of :meth:`_batch_spec`;
+        ``sp`` itself otherwise."""
+        return sp[:axis] + (None,) + sp[axis + 1:] if b == 1 else sp
 
     # ------------------------------------------------------------- params
     def _leaf(self, name: str) -> torch.Tensor:
@@ -709,7 +724,10 @@ class LM(nn.Module):
 
     def init_cache(self, batch: int, window: int) -> Params:
         if self.mesh is not None:
-            specs = cache_specs(self.cfg, self.spec_mesh, batch=batch)
+            # [L, batch, ...]: one row replicated, as in _batch_spec
+            specs = {k: self._one_row(sp, batch, 1) for k, sp in
+                     cache_specs(self.cfg, self.spec_mesh,
+                                 batch=batch).items()}
             out = {}
             for k, (shape, dt) in self.cache_shapes(batch, window).items():
                 t = self.sharded_empty(shape, dt, specs[k])

@@ -22,9 +22,10 @@ rank a card on a host of several cards (NCCL there).
   "data"): greedy tokens equal one device's, hymba at 4x1 and 2x2,
   deepseek at 4x1 and 2x2.
 - The CLIs under ``torch.distributed.run --nproc-per-node 4``.
-- Refusals: a global batch the data axis does not divide, a host world
-  beside a ``fake`` one and a ``fake`` world inside a host world, a
-  process that is no rank of a world. No process group is left up.
+- Refusals: a host world beside a ``fake`` one and a ``fake`` world
+  inside a host world, a process that is no rank of a world. No process
+  group is left up. (Batches the data axis does not divide:
+  ``tests/test_torch_host_batches.py``.)
 
 The ranks run this module's ``_rank`` (spawned processes import it), in a
 launcher subprocess with a time limit and one torch thread each (ROADMAP,
@@ -184,10 +185,6 @@ def _rank(tmp):
             got = serve.serve_lm(lm, _prompts(cfg), SERVE_STEPS, window=64)
             out["tokens"][case] = got.tokens.numpy()
         # (f) refusals
-        try:
-            train.train_loop(cfg, **_kw(steps=1, global_batch=6, mesh=dm41))
-        except ValueError as e:
-            out["indivisible"] = str(e)
         try:
             with mesh_mod.fake_world(RANKS):
                 pass
@@ -461,11 +458,6 @@ def test_serving_cli_under_torchrun(capsys):
 
 
 # ---------------------------------------------------------- (f) refusals
-def test_a_global_batch_the_data_axis_does_not_divide_is_refused(world):
-    assert "global batch 6 does not split over the mesh's 4 data " \
-        "shards" in world["out"]["indivisible"]
-
-
 def test_a_fake_world_and_a_host_world_refuse_each_other(world,
                                                          monkeypatch):
     assert "cannot start beside it" in world["out"]["fake_inside"]
