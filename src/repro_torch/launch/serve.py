@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import sys
 import time
 from dataclasses import astuple, dataclass
@@ -41,6 +42,7 @@ from typing import Dict, Hashable, List, Optional
 import torch
 
 from .. import device as device_mod
+from .. import tracing
 from ..configs import get_config
 from ..models.layers import _laid_out, is_sharded
 from ..models.model import LM
@@ -369,6 +371,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "unchanged by contract")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--spans", action="store_true",
+                    help="serve inside repro_torch.tracing.recording() and "
+                         "print the LM's spans (calls, host ms, device ms "
+                         "by path) and the MoE slots dropped")
     args = ap.parse_args(argv)
 
     if args.device is not None:
@@ -393,14 +399,16 @@ def main(argv: Optional[List[str]] = None) -> None:
 def _serve_main(cfg, args, dev: torch.device, mesh) -> None:
     """``main``'s serving run: the LM of ``cfg`` from seed 0 (partitioned
     on ``mesh`` where given), ``args.batch`` seeded prompts of 8 tokens,
-    ``args.steps`` greedy tokens; rank 0 prints."""
+    ``args.steps`` greedy tokens; rank 0 prints, with ``args.spans`` the
+    run's spans and counters too (``repro_torch.tracing``)."""
     lm = LM(cfg, dev, mesh=mesh).init(
         torch.Generator(device=dev).manual_seed(0))
     prompt_len = 8
     prompts = torch.randint(0, cfg.vocab, (args.batch, prompt_len),
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev)
-    res = serve_lm(lm, prompts, args.steps, window=args.window)
+    with tracing.recording() if args.spans else contextlib.nullcontext():
+        res = serve_lm(lm, prompts, args.steps, window=args.window)
     if not mesh_mod.is_rank0(mesh):
         return
     dt = res.decode_s
@@ -408,6 +416,8 @@ def _serve_main(cfg, args, dev: torch.device, mesh) -> None:
           f"in {dt:.2f}s ({args.batch*args.steps/dt:.1f} tok/s)")
     for b in range(args.batch):
         print(f"  req{b}: {res.tokens[b, :12].tolist()}...")
+    if args.spans:
+        print(tracing.report(tracing.snapshot()))
 
 
 if __name__ == "__main__":

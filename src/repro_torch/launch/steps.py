@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..models.config import ModelConfig
 from ..models.model import LM, param_shapes, param_specs
 from ..models.sharding import placements, tp_size
@@ -28,6 +29,7 @@ from ..optim import adamw
 Batch = Dict[str, torch.Tensor]
 
 
+@tracing.spanned("value_and_grad")
 def value_and_grad(lm: LM, batch: Batch
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               Dict[str, torch.Tensor]]:

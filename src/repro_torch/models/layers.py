@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 from .sharding import AttnPlan
@@ -653,6 +654,18 @@ def _local_experts(keep: torch.Tensor, idx: torch.Tensor, lo: int, el: int,
     return keep & (idx >= lo) & (idx < lo + el), idx - lo
 
 
+def _count_slots(keep: torch.Tensor) -> None:
+    """Count a dispatch's (token, expert) slots and those dropped past
+    their expert's capacity (``keep`` false), while tracing is on."""
+    if tracing.active():
+        tracing.count("moe_routed_slots", keep.numel())
+        # written as int64, so the sum reads it without a cast: 2 kernels
+        dropped = torch.empty(keep.shape, dtype=torch.int64,
+                              device=keep.device)
+        tracing.count("moe_dropped_slots",
+                      torch.logical_not(keep, out=dropped).sum())
+
+
 def _sort_dispatch(p: Params, xg: torch.Tensor, gate: torch.Tensor,
                    idx: torch.Tensor, cap: int, lo: int, e: int
                    ) -> torch.Tensor:
@@ -662,50 +675,61 @@ def _sort_dispatch(p: Params, xg: torch.Tensor, gate: torch.Tensor,
     ng, sg, d = xg.shape
     k = idx.shape[-1]
     el = p["w_gate"].shape[0]
-    flat_e = idx.reshape(ng, sg * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)                # [g, sg*k]
-    # position within expert = rank - first occurrence of that expert
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    pos = torch.arange(sg * k, device=xg.device)[None, :] - first
-    keep, sorted_e = _local_experts(pos < cap, sorted_e, lo, el, e)
-    dest = torch.where(keep, sorted_e * cap + pos, el * cap)  # spare row
-    token = order // k                                       # [g, sg*k]
-    src = torch.gather(xg, 1, token[..., None].expand(-1, -1, d))
-    xin = torch.zeros((ng, el * cap + 1, d), dtype=xg.dtype, device=xg.device)
-    xin.scatter_(1, dest[..., None].expand(-1, -1, d), src)
-    eout = _experts(p, xin[:, :el * cap].reshape(ng, el, cap, d))
-    eout = eout.reshape(ng, el * cap, d)
-
-    back = torch.gather(eout, 1, torch.where(keep, dest, 0)[..., None]
-                        .expand(-1, -1, d))                  # [g, sg*k, d]
-    gflat = torch.gather(gate.reshape(ng, sg * k), 1, order)
-    w = torch.where(keep, gflat, 0.0).float()
-    contrib = back.float() * w[..., None]
-    out = torch.zeros((ng, sg, d), dtype=torch.float32, device=xg.device)
-    out.scatter_add_(1, token[..., None].expand(-1, -1, d), contrib)
-    return out.to(xg.dtype)
+    with tracing.span("moe.dispatch"):
+        flat_e = idx.reshape(ng, sg * k)
+        order = torch.argsort(flat_e, dim=1, stable=True)
+        sorted_e = torch.gather(flat_e, 1, order)            # [g, sg*k]
+        # position within expert = rank - first occurrence of that expert
+        first = torch.searchsorted(sorted_e, sorted_e, side="left")
+        pos = torch.arange(sg * k, device=xg.device)[None, :] - first
+        fits = pos < cap
+        _count_slots(fits)
+        keep, sorted_e = _local_experts(fits, sorted_e, lo, el, e)
+        dest = torch.where(keep, sorted_e * cap + pos, el * cap)  # spare row
+        token = order // k                                   # [g, sg*k]
+        src = torch.gather(xg, 1, token[..., None].expand(-1, -1, d))
+        xin = torch.zeros((ng, el * cap + 1, d), dtype=xg.dtype,
+                          device=xg.device)
+        xin.scatter_(1, dest[..., None].expand(-1, -1, d), src)
+    with tracing.span("moe.experts"):
+        eout = _experts(p, xin[:, :el * cap].reshape(ng, el, cap, d))
+    with tracing.span("moe.combine"):
+        eout = eout.reshape(ng, el * cap, d)
+        back = torch.gather(eout, 1, torch.where(keep, dest, 0)[..., None]
+                            .expand(-1, -1, d))              # [g, sg*k, d]
+        gflat = torch.gather(gate.reshape(ng, sg * k), 1, order)
+        w = torch.where(keep, gflat, 0.0).float()
+        contrib = back.float() * w[..., None]
+        out = torch.zeros((ng, sg, d), dtype=torch.float32, device=xg.device)
+        out.scatter_add_(1, token[..., None].expand(-1, -1, d), contrib)
+        return out.to(xg.dtype)
 
 
 def _einsum_dispatch(p: Params, xg: torch.Tensor, gate: torch.Tensor,
-                     idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
-                     cap: int, lo: int, e: int) -> torch.Tensor:
+                     idx: torch.Tensor, cap: int, lo: int, e: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one-hot dispatch of ``moe_einsum`` on the experts from ``lo``
-    whose weights ``p`` holds: [g,sg,d] in xg's dtype."""
+    whose weights ``p`` holds: ([g,sg,d] in xg's dtype, the one-hot of
+    idx [g,sg,k,e] f32)."""
     ng, sg, d = xg.shape
     el = p["w_gate"].shape[0]
-    keep, idx = _local_experts(keep, idx, lo, el, e)
-    col = torch.where(keep, idx * cap + pos, el * cap)       # [g,sg,k]
-    dispatch = torch.zeros((ng, sg, el * cap + 1), dtype=torch.float32,
-                           device=xg.device)
-    combine = torch.zeros_like(dispatch)
-    dispatch.scatter_(2, col, 1.0)
-    combine.scatter_(2, col, gate)
-    dispatch = dispatch[..., :el * cap].to(xg.dtype)         # [g,sg,el*cap]
-    combine = combine[..., :el * cap].to(xg.dtype)
-    xin = dispatch.transpose(1, 2) @ xg                      # [g,el*cap,d]
-    eout = _experts(p, xin.reshape(ng, el, cap, d))
-    return combine @ eout.reshape(ng, el * cap, d)           # [g,sg,d]
+    with tracing.span("moe.dispatch"):
+        onehot, pos, keep = _slots(idx, e, cap)
+        _count_slots(keep)
+        keep, idx = _local_experts(keep, idx, lo, el, e)
+        col = torch.where(keep, idx * cap + pos, el * cap)   # [g,sg,k]
+        dispatch = torch.zeros((ng, sg, el * cap + 1), dtype=torch.float32,
+                               device=xg.device)
+        combine = torch.zeros_like(dispatch)
+        dispatch.scatter_(2, col, 1.0)
+        combine.scatter_(2, col, gate)
+        dispatch = dispatch[..., :el * cap].to(xg.dtype)     # [g,sg,el*cap]
+        combine = combine[..., :el * cap].to(xg.dtype)
+        xin = dispatch.transpose(1, 2) @ xg                  # [g,el*cap,d]
+    with tracing.span("moe.experts"):
+        eout = _experts(p, xin.reshape(ng, el, cap, d))
+    with tracing.span("moe.combine"):
+        return combine @ eout.reshape(ng, el * cap, d), onehot  # [g,sg,d]
 
 
 def _routed(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -718,16 +742,19 @@ def _routed(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``aux_grad`` no gradient flows back through the probabilities' sum."""
     b, s, d = x.shape
     e = cfg.n_experts
-    xg, probs, gate, idx, cap = _route(cfg, p, x, t)
+    with tracing.span("moe.route"):
+        xg, probs, gate, idx, cap = _route(cfg, p, x, t)
     if cfg.moe_impl == "sort":
         out = _sort_dispatch(p, xg, gate, idx, cap, lo, e)
-        onehot = F.one_hot(idx, e).float()
+        onehot = None
     else:
-        onehot, pos, keep = _slots(idx, e, cap)
-        out = _einsum_dispatch(p, xg, gate, idx, pos, keep, cap, lo, e)
-    pa = probs if aux_grad else probs.detach()
-    return (out.reshape(b, s, d), pa.reshape(-1, e).sum(0),
-            onehot.reshape(-1, e).sum(0))
+        out, onehot = _einsum_dispatch(p, xg, gate, idx, cap, lo, e)
+    with tracing.span("moe.aux"):
+        if onehot is None:
+            onehot = F.one_hot(idx, e).float()
+        pa = probs if aux_grad else probs.detach()
+        psum, csum = pa.reshape(-1, e).sum(0), onehot.reshape(-1, e).sum(0)
+    return out.reshape(b, s, d), psum, csum
 
 
 def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -812,7 +839,10 @@ def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     are all-reduced over the data axes that split the groups) and the
     aux loss over all tokens. Returns (out [B,S,D], aux loss f32)."""
     b, s, _ = x.shape
-    shared = swiglu(p["shared"], x) if cfg.n_shared_experts else None
+    shared = None
+    if cfg.n_shared_experts:
+        with tracing.span("moe.shared"):
+            shared = swiglu(p["shared"], x)
     if is_sharded(x):
         from torch.distributed.tensor import Replicate
         out, psum, csum = _moe_sharded(cfg, p, x, shared)
@@ -823,7 +853,8 @@ def moe_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out, psum, csum = _routed(cfg, p, x)
         if shared is not None:
             out = out + shared
-    return out, _aux(cfg, psum, csum, b * s)
+    with tracing.span("moe.aux"):
+        return out, _aux(cfg, psum, csum, b * s)
 
 
 def moe_sort(cfg: ModelConfig, p: Params, x: torch.Tensor,

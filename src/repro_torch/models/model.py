@@ -63,6 +63,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..device import resolve_device
 from . import layers
 from .config import ModelConfig
@@ -563,44 +564,51 @@ class LM(nn.Module):
         under MoE and 0.0 otherwise (no launch on a decode step)."""
         cfg = self.cfg
         aux: Any = 0.0
-        h = self._gathered(layers.rmsnorm(x, p["ln1"], cfg.norm_eps))
+        with tracing.span("norm"):
+            h = self._gathered(layers.rmsnorm(x, p["ln1"], cfg.norm_eps))
         new_cache: Dict[str, Any] = {}
         impl = cfg.attn_impl if cache is None else "blockwise"
         if cfg.family in ("dense", "moe", "audio", "vlm"):
-            a, kv = layers.attention_layer(
-                cfg, self.plan, p["attn"], h, positions,
-                cache=cache.get("attn") if cache else None, window=window,
-                impl=impl)
+            with tracing.span("attention"):
+                a, kv = layers.attention_layer(
+                    cfg, self.plan, p["attn"], h, positions,
+                    cache=cache.get("attn") if cache else None,
+                    window=window, impl=impl)
             x = x + self._scattered(a, x)
             new_cache["attn_kv"] = kv
         elif cfg.family == "ssm":
-            a, sc = layers.ssm_layer(cfg, p["ssm"], h,
-                                     cache=cache.get("ssm") if cache else None,
-                                     want_cache=want_cache)
+            with tracing.span("ssm"):
+                a, sc = layers.ssm_layer(
+                    cfg, p["ssm"], h, cache=cache.get("ssm") if cache else None,
+                    want_cache=want_cache)
             x = x + self._scattered(a, x)
             new_cache["ssm"] = sc
         elif cfg.family == "hybrid":
-            a, kv = layers.attention_layer(
-                cfg, self.plan, p["attn"], h, positions,
-                cache=cache.get("attn") if cache else None, window=window,
-                impl=impl)
-            s_out, sc = layers.ssm_layer(
-                cfg, p["ssm"], h, cache=cache.get("ssm") if cache else None,
-                want_cache=want_cache)
+            with tracing.span("attention"):
+                a, kv = layers.attention_layer(
+                    cfg, self.plan, p["attn"], h, positions,
+                    cache=cache.get("attn") if cache else None,
+                    window=window, impl=impl)
+            with tracing.span("ssm"):
+                s_out, sc = layers.ssm_layer(
+                    cfg, p["ssm"], h, cache=cache.get("ssm") if cache else None,
+                    want_cache=want_cache)
             x = x + self._scattered(
                 layers.hybrid_mix(a, s_out, p["mix"], x.dtype), x)
             new_cache["attn_kv"] = kv
             new_cache["ssm"] = sc
         else:
             raise ValueError(cfg.family)
+        if cfg.n_experts or cfg.d_ff:
+            with tracing.span("norm"):
+                h2 = self._gathered(layers.rmsnorm(x, p["ln2"], cfg.norm_eps))
         if cfg.n_experts:
-            h2 = self._gathered(layers.rmsnorm(x, p["ln2"], cfg.norm_eps))
             mo, aux = layers.moe_layer(cfg, p["moe"], h2)
             x = x + self._scattered(mo, x)
         elif cfg.d_ff:
-            h2 = self._gathered(layers.rmsnorm(x, p["ln2"], cfg.norm_eps))
-            x = x + self._scattered(
-                layers.swiglu(p["mlp"], h2, bias=cfg.mlp_bias), x)
+            with tracing.span("mlp"):
+                mo = layers.swiglu(p["mlp"], h2, bias=cfg.mlp_bias)
+            x = x + self._scattered(mo, x)
         if self.mesh is not None:
             x = self._constrain(x, self._act_spec(x))
         return x, new_cache, aux
@@ -608,6 +616,7 @@ class LM(nn.Module):
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return layers.embed_lookup(self.embed, tokens)
 
+    @tracing.spanned("head")
     def logits(self, x: torch.Tensor, keep: Optional[int] = None
                ) -> torch.Tensor:
         """The last ``keep`` positions' logits (all with None). On a mesh
@@ -779,6 +788,7 @@ class LM(nn.Module):
             buf[i][:, slots] = val
 
     @torch.no_grad()
+    @tracing.spanned("decode_step")
     def decode_step(self, cache: Params, tokens: torch.Tensor, t: int,
                     ) -> Tuple[torch.Tensor, Params]:
         """One token for the whole batch. tokens: [B,1]; t: the current
@@ -809,16 +819,18 @@ class LM(nn.Module):
                     "conv_B": cache["conv_B"][i],
                     "conv_C": cache["conv_C"][i]}
             x, nc, _ = self._block(lp, x, positions, layer_cache, window=aw)
-            if not cfg.is_attention_free:
-                self._write_kv(cache, i, slot, nc["attn_kv"]["k"][:, 0],
-                               nc["attn_kv"]["v"][:, 0])
-                self._put(cache["pos"], i, t, slot)
-            if cfg.has_ssm:
-                for key in ("state", "conv_x", "conv_B", "conv_C"):
-                    self._put(cache[key], i, nc["ssm"][key])
+            with tracing.span("cache_write"):
+                if not cfg.is_attention_free:
+                    self._write_kv(cache, i, slot, nc["attn_kv"]["k"][:, 0],
+                                   nc["attn_kv"]["v"][:, 0])
+                    self._put(cache["pos"], i, t, slot)
+                if cfg.has_ssm:
+                    for key in ("state", "conv_x", "conv_B", "conv_C"):
+                        self._put(cache[key], i, nc["ssm"][key])
         return self.logits(x), cache
 
     @torch.no_grad()
+    @tracing.spanned("prefill")
     def prefill(self, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prefill forward; returns last-position logits [B,1,V]."""
@@ -826,6 +838,7 @@ class LM(nn.Module):
         return self.logits(x, keep=1)
 
     @torch.no_grad()
+    @tracing.spanned("prefill")
     def prefill_with_cache(self, tokens: Optional[torch.Tensor],
                            embeds: Optional[torch.Tensor] = None,
                            window: Optional[int] = None,
@@ -851,12 +864,13 @@ class LM(nn.Module):
         for i, lp in enumerate(self._layers()):
             x, nc, _ = self._block(lp, x, positions, cache=None,
                                    window=cfg.attn_window, want_cache=True)
-            if not cfg.is_attention_free:
-                self._write_kv(cache, i, slots,
-                               nc["attn_kv"]["k"][:, s - take:s],
-                               nc["attn_kv"]["v"][:, s - take:s])
-                self._put(cache["pos"], i, src.to(torch.int32), slots)
-            if cfg.has_ssm:
-                for key in ("state", "conv_x", "conv_B", "conv_C"):
-                    self._put(cache[key], i, nc["ssm"][key])
+            with tracing.span("cache_write"):
+                if not cfg.is_attention_free:
+                    self._write_kv(cache, i, slots,
+                                   nc["attn_kv"]["k"][:, s - take:s],
+                                   nc["attn_kv"]["v"][:, s - take:s])
+                    self._put(cache["pos"], i, src.to(torch.int32), slots)
+                if cfg.has_ssm:
+                    for key in ("state", "conv_x", "conv_B", "conv_C"):
+                        self._put(cache[key], i, nc["ssm"][key])
         return self.logits(x, keep=1), cache

@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Tuple
 
 import torch
 
+from .. import tracing
 from ..models.layers import is_sharded
 from ..models.sharding import Spec, batch_axes, dp_size
 
@@ -154,6 +155,7 @@ def _gathered_to(new: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+@tracing.spanned("optimizer")
 def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: State,
            params: Mapping[str, torch.Tensor]) -> Tuple[State, Dict[str, Any]]:
     """One AdamW step, in place on ``params`` and ``state["m"]``/``["v"]``.
