@@ -35,16 +35,18 @@ an unresolvable guide name (unguided).
 The LM: it holds ``flash_attention`` (both of its kernels: bf16 on the
 tensor cores, f32 on the SIMT kernel) and ``ssd_scan`` (three launches:
 chunk states, the pass over them, chunk outputs; each one's device time is
-printed) against their plain versions at hymba_1_5b's shapes, and the bf16
-attention also at
+printed; y and the final state held to ``ssd_chunked`` too, also at the
+benchmark's 96-row served prefill) against their plain versions at
+hymba_1_5b's shapes, and the bf16 attention also at
 minitron_8b's (D = 128), and times them beside the library call where
 there is one; both attention kernels are also held on small cases at every
 D that reach what those shapes do not (tails, q_offset, narrow windows,
 non-causal). Then it serves hymba_1_5b at its published widths in bf16
 with ``attn_impl="flash"`` (4 prompts of 2048 seeded tokens, prefill into
-the ring buffer, 32 greedy decode steps; 32 tensor-core flash launches per
-prefill), and holds flash against blockwise prefill on the same weights
-and tokens, gated in f32 and reported in bf16.
+the ring buffer, 32 greedy decode steps; 32 tensor-core flash launches and
+32 ``ssd_scan`` launches per prefill), and holds flash against blockwise
+prefill on the same weights and tokens, gated in f32 and reported in
+bf16.
 
 The MoE family and the int8 KV cache: it serves deepseek_moe_16b at its
 published widths (28 layers, 64 routed experts top-6 plus 2 shared, vocab
@@ -88,10 +90,12 @@ trains 3 steps at 4 x 4096 (gates: each loss within 1e-3 relative of the
 train phase's first three; the run's checkpoint, restored on the plain
 path, bit-identical to the mesh run's state; the manifest's mesh the
 world's), then serves the serve phase's prompts for 32 greedy steps
-(gates: on one card the serve phase's tokens, on several the run fed the
-serve phase's tokens within total variation 3e-3 of its softmax at each
-step; a planted fault, one rank's cache shard zeroed, read above that
-bound; the same on every rank; 32 tensor-core flash
+(gates: the run fed the serve phase's tokens within total variation
+3e-3 of its softmax at each step, on one card too, where the plain
+path's prefill SSD runs on ``ssd_scan`` and the partitioned LM's on
+``ssd_chunked``; on one card its tokens equal the plain path's run on
+``ssd_chunked``; a planted fault, one rank's cache shard zeroed, read
+above that bound; the same on every rank; 32 tensor-core flash
 launches, each kernel row's ``host_mesh_path_launches``). It prints
 step seconds, peak memory and prefill and decode seconds beside the
 plain path's. On a card count that does not divide the 4 rows (three
@@ -104,10 +108,10 @@ unit of the printed digit; the last step's loss within 1e-5 relative,
 its grad norm and the AdamW moments' sum of m^2 and of v within 1e-3, so
 that gradients summed over replicas fail); and row 0 of the prompts
 alone, 8 greedy steps (gates: 32 tensor-core flash launches, each kernel
-row's ``host_mesh_one_row_path_launches``; on one card the plain path's
-tokens for that row, on several the run fed them within total variation
-3e-3). flash_attention is held to its plain version at that row's shape
-(q [1,25,2048,64]) before the serve phase (``flash_one_row``).
+row's ``host_mesh_one_row_path_launches``; the run fed the plain path's
+tokens for that row within total variation 3e-3). flash_attention is
+held to its plain version at that row's shape (q [1,25,2048,64]) before
+the serve phase (``flash_one_row``).
 
 The dry run (``dryrun_phase``, after the host world): ``run_cell`` of
 ``repro_torch.launch.dryrun`` for every arch x shape on the 16x16 pod mesh
@@ -118,7 +122,8 @@ Then hymba_1_5b at its published widths on a 1x1 mesh: prefill of 4 x 2048
 tokens with flash, a decode step at batch 4 over a 2048-slot ring and a
 train step at 4 x 4096, each dry-run on meta and then run on the card
 (gates: the FLOPs counted on meta equal ``FlopCounterMode``'s over the
-real step on cuda, the argument bytes equal the real tensors'; printed:
+real step on cuda, the prefill's SSDs through ``ssd_scan``'s operator
+on both, the argument bytes equal the real tensors'; printed:
 the predicted peak against ``max_memory_allocated``, the step's time
 against the roofline, model FLOPs against the bf16 peak), and the cost of
 flash's ``torch.library`` operator against a direct launch.
@@ -201,6 +206,9 @@ ATTN_SHAPE_D128 = dict(B=4, Hq=32, Hkv=8, S=2048, D=128)
 # deepseek_moe_16b's prefill attention: MHA, 16 heads of 128, no window
 ATTN_SHAPE_MOE = dict(B=4, Hq=16, Hkv=16, S=2048, D=128)
 SSD_SHAPE = dict(b=4, s=2048, h=32, p=100, n=16)
+# the benchmark's served prefill: 96 rows of hymba_1_5b's SSM (bf16 x/B/C,
+# f32 dt, chunk 256), the scan with the state it hands to decode
+SSD_SHAPE_SERVE = dict(SSD_SHAPE, b=96)
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, AGREE_STEPS = 4, 2048, 32, 8
 # the training phase: hymba_1_5b at its published widths, train_4k's
 # sequence (src/repro/models/config.py) at a global batch cut from 256 to 4
@@ -243,8 +251,8 @@ HOST_FAULT_GATED, HOST_FAULT_STEPS = "cache", 4
 # rows replicated over the ranks on several), each loss within
 # HOST_LOSS_RTOL of the plain train_loop's on the same batches; and row 0
 # of the serve phase's prompts alone, ONE_ROW_STEPS greedy steps, held to
-# the plain path's run of that row (tokens equal on one card, fed its
-# tokens within HOST_TV on several)
+# the plain path's run of that row (fed its tokens within HOST_TV; on one
+# card its tokens equal the plain path's on the partitioned LM's SSD route)
 HOST_SMALL_STEPS, HOST_SMALL_BATCH, ONE_ROW_STEPS = 2, (1, 2), 8
 # the small run's gates, tighter than HOST_LOSS_RTOL: each step's loss and
 # grad norm as the log prints them (4 and 3 decimals, LOG_UNITS) within
@@ -267,6 +275,10 @@ FLASH_NOTE = ("route by dtype: bf16 -> tensor_core (flash_fwd_kernel_wgmma: "
               "every served prefill launch; f32 -> simt (flash_fwd_kernel, "
               "f32 FMAs)")
 SSD_TOL = 2e-3
+SSD_NOTE = ("route by device, layout and grad mode (layers.ssd_route): a "
+            "plain CUDA tensor on a call recording no autograd graph runs "
+            "the kernel with its final state, one launch a served prefill "
+            "layer; training, DTensors and the CPU run ssd_chunked")
 CLAUSE_NOTE = ("clen route (the walk's): each row's slots [0, clen) are "
                "read; no_clen_ms and bound_no_clen are the full-rows route, "
                "which reads every slot of the padded [K,C,L] table")
@@ -284,7 +296,7 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "partitioned_shape", "partitioned_moe_path_launches",
                  "one_row_shape",
                  "partitioned_moe_shape", "host_mesh_path_launches",
-                 "host_mesh_one_row_path_launches")
+                 "host_mesh_one_row_path_launches", "serve_shape")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 # the dry run: the sweep's meshes (multi_pod, and None for every arch x
 # shape or the (arch, shape) cells to run). Every cell on both meshes took
@@ -1039,12 +1051,13 @@ def flash_bound_ms(B, Hq, Hkv, S, D, window, itemsize, flops_per_s):
 
 def ssd_bound_ms(b, s, h, p, n, chunk, x_itemsize, bc_itemsize, flops_per_s):
     """Least time for one scan: x, dt, B, C (and A_log, D) read once, y
-    written once, against the chunked form's products: C.B^T and the
-    decay-weighted product with x over the causal half of each chunk, and
-    the two [l,p,n] state products per chunk."""
-    nc = -(-s // chunk)
-    tri = chunk * (chunk + 1) // 2
-    flops = b * h * nc * (2 * tri * (n + p) + 4 * chunk * n * p)
+    written once, against the chunked form's products (``ssd_flops``, the
+    operator's FLOP formula): C.B^T and the decay-weighted product with x
+    over the causal half of each chunk, and the two [l,p,n] state products
+    per chunk."""
+    from repro_torch.kernels.ssd_scan import ssd_flops
+    flops = ssd_flops((b, s, h, p), None, None, (b, s, n), None, None, None,
+                      chunk, False)
     nbytes = (2 * b * s * h * p * x_itemsize + b * s * h * 4
               + 2 * b * s * n * bc_itemsize + 2 * h * 4)
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
@@ -1298,20 +1311,24 @@ def lm_kernel_phase(torch):
         rtol = SSD_TOL + (BF16_UNIT_ROUNDOFF if dtype == torch.bfloat16
                           else 0.0)
         for chunk in (128, 256):
-            got = ssd_scan(x, dt, A_log, Bm, Cm, Dv, chunk=chunk)
+            got, state = ssd_scan(x, dt, A_log, Bm, Cm, Dv, chunk=chunk,
+                                  return_state=True)
             torch.cuda.synchronize()
             err, ok = _close(got, want, SSD_TOL, rtol)
             if not ok or not torch.isfinite(got).all():
                 raise AssertionError(f"ssd_scan {dtype} chunk {chunk}: max "
                                      f"abs err {err} beyond atol={SSD_TOL} "
                                      f"rtol={rtol} against ssd_ref")
-            chunked = ssd_chunked(x, dt, A_log, Bm, Cm, Dv, chunk)
+            chunked, c_state = ssd_chunked(x, dt, A_log, Bm, Cm, Dv, chunk,
+                                           return_state=True)
             c_err, c_ok = _close(got, chunked, SSD_TOL,
                                  rtol + (BF16_UNIT_ROUNDOFF
                                          if dtype == torch.bfloat16 else 0))
-            if not c_ok:
+            s_err, s_ok = _close(state, c_state, SSD_TOL, SSD_TOL)
+            if not c_ok or not s_ok:
                 raise AssertionError(f"ssd_scan {dtype} chunk {chunk}: max "
-                                     f"abs err {c_err} against ssd_chunked")
+                                     f"abs err {c_err} in y, {s_err} in the "
+                                     f"final state against ssd_chunked")
             row = {
                 "ms": cuda_ms(torch, lambda: ssd_scan(
                     x, dt, A_log, Bm, Cm, Dv, chunk=chunk)),
@@ -1328,18 +1345,67 @@ def lm_kernel_phase(torch):
                 "phase_ms": device_phases(torch, lambda: ssd_scan(
                     x, dt, A_log, Bm, Cm, Dv, chunk=chunk)),
                 "max_abs_err": err, "chunked_max_abs_err": c_err,
+                "state_max_abs_err": s_err,
                 "max_abs_y": float(want.abs().max()),
                 "shape": f"x [{b},{s},{h},{p}] B/C [{b},{s},{n}] "
                          f"{str(dtype)[6:]} x/B/C, dt f32, chunk {chunk}",
-                "note": "no model call site (ssm_layer uses ssd_chunked, "
-                        "as in the reference); driven through its entry "
-                        "point at hymba_1_5b's SSM shapes"}
+                "note": SSD_NOTE}
             emit("ssd_scan", atol=SSD_TOL, rtol=rtol, **row)
             if dtype == torch.bfloat16 and chunk == 256:
                 out["ssd_scan"] = row
-            del got, chunked
+            del got, chunked, state, c_state
         del want
+    out["ssd_scan"]["serve_shape"] = ssd_serve_row(torch, gen)
     return out
+
+
+def ssd_serve_row(torch, gen):
+    """ssd_scan with its final state at the benchmark's served prefill
+    (``SSD_SHAPE_SERVE``: 96 rows, bf16 x/B/C, f32 dt, chunk 256), held to
+    ``ssd_chunked`` (y within SSD_TOL plus two bf16 roundings, the state
+    within SSD_TOL) and timed beside it and the sequential ``ssd_ref``."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    from repro_torch.models.layers import ssd_chunked
+    dev = torch.device("cuda", 0)
+    b, s, h, p, n = (SSD_SHAPE_SERVE[k] for k in ("b", "s", "h", "p", "n"))
+    chunk = 256
+    x, Bm, Cm = (torch.randn(shape, generator=gen, device=dev)
+                 .to(torch.bfloat16)
+                 for shape in ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.5
+    A_log = torch.rand((h,), generator=gen, device=dev)
+    Dv = torch.rand((h,), generator=gen, device=dev)
+    args = (x, dt, A_log, Bm, Cm, Dv)
+    got, state = ssd_scan(*args, chunk=chunk, return_state=True)
+    chunked, c_state = ssd_chunked(*args, chunk, return_state=True)
+    torch.cuda.synchronize()
+    y_err, y_ok = _close(got, chunked, SSD_TOL,
+                         SSD_TOL + 2 * BF16_UNIT_ROUNDOFF)
+    s_err, s_ok = _close(state, c_state, SSD_TOL, SSD_TOL)
+    if not (y_ok and s_ok) or not torch.isfinite(got).all():
+        raise AssertionError(f"ssd_scan at the serve shape: max abs err "
+                             f"{y_err} in y, {s_err} in the final state "
+                             f"against ssd_chunked")
+    del got, state, chunked, c_state
+    torch.cuda.empty_cache()
+    row = {
+        "ms": cuda_ms(torch, lambda: ssd_scan(*args, chunk=chunk,
+                                              return_state=True)),
+        "chunked_ms": cuda_ms(torch, lambda: ssd_chunked(
+            *args, chunk, return_state=True), reps=3),
+        "plain_ms": cuda_ms(torch, lambda: ssd_ref(*args,
+                                                   return_state=True),
+                            reps=1),
+        "bound": ssd_bound_ms(b, s, h, p, n, chunk, 2, 2, BF16_TENSOR_FLOPS),
+        "phase_ms": device_phases(torch, lambda: ssd_scan(
+            *args, chunk=chunk, return_state=True)),
+        "chunked_max_abs_err": y_err, "state_max_abs_err": s_err,
+        "shape": f"x [{b},{s},{h},{p}] B/C [{b},{s},{n}] bfloat16 x/B/C, "
+                 f"dt f32, chunk {chunk}, final state [{b},{h},{p},{n}] f32"}
+    emit("ssd_scan_serve_shape", atol=SSD_TOL, **row)
+    del args, x, Bm, Cm, dt
+    torch.cuda.empty_cache()
+    return row
 
 
 def clause_eval_band_phase(torch):
@@ -1924,7 +1990,8 @@ def serve_phase(torch, arch, smi):
     seeded tokens prefilled into the ring buffer (2048 slots, or the
     config's window), then 32 greedy decode steps; then where its time
     goes (``serve_profile``). Gates: one flash launch per layer, all on
-    the tensor cores, no layout copies, finite logits. Returns (the LM,
+    the tensor cores, no layout copies, one ssd_scan launch per SSM
+    layer, finite logits. Returns (the LM,
     the prompts, the serve result, the launch counts of the run, its peak
     memory)."""
     from repro_torch.configs import get_config
@@ -1961,6 +2028,10 @@ def serve_phase(torch, arch, smi):
     if flash.layout_copies:
         raise AssertionError(f"the served prefill copied "
                              f"{flash.layout_copies} operands before flash")
+    if launches["ssd_scan"] != (cfg.n_layers if cfg.has_ssm else 0):
+        raise AssertionError(f"{cfg.name} prefill launched ssd_scan "
+                             f"{launches['ssd_scan']} times, expected one "
+                             f"per SSM layer")
     finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits)
     if not finite or res.tokens.shape != (SERVE_BATCH, SERVE_STEPS):
         raise AssertionError(f"{cfg.name} serve: non-finite logits or wrong "
@@ -2670,10 +2741,10 @@ def host_mesh_rank(ckpt_dir, fed, one_row_fed, small_batch):
     for bit; trains HOST_SMALL_STEPS steps at ``small_batch`` rows, its
     log lines timed; then serves the serve phase's prompts through
     ``serve_lm`` on the partitioned LM (flash prefill, 32 greedy steps),
-    the kernels' launches counted; on more than one rank also fed ``fed``
-    (the serve phase's tokens), its logits returned; then row 0 of the
-    prompts alone for ONE_ROW_STEPS steps, the launches counted (on more
-    than one rank also fed ``one_row_fed``); and, fed ``fed``, once for
+    the kernels' launches counted; then fed ``fed`` (the serve phase's
+    tokens), its logits returned; then row 0 of the prompts alone for
+    ONE_ROW_STEPS steps, the launches counted, and fed ``one_row_fed``;
+    and, fed ``fed``, once for
     each planted fault (:func:`_planted`) for HOST_FAULT_STEPS steps.
     Rank 0 returns what it saw, the others None."""
     import shutil
@@ -2801,13 +2872,14 @@ def host_mesh_rank(ckpt_dir, fed, one_row_fed, small_batch):
                    prefill_s=sres.prefill_s, decode_s=sres.decode_s,
                    serve_max_memory_allocated=torch.cuda.max_memory_allocated(
                        dev))
-        if dist.get_world_size() > 1:
-            # each rank's GEMMs see its rows alone, so bf16 rounds
-            # otherwise than on one card: the logits fed the same tokens
-            forced = serve_lm(lm, prompts(1), SERVE_STEPS,
-                              feed=torch.tensor(fed, device=dev))
-            out["forced_logits"] = [lg.cpu() for lg in forced.logits]
-            del forced
+        # each rank's GEMMs see its rows alone, and the partitioned LM's
+        # prefill SSD is ssd_chunked where the plain path's is ssd_scan,
+        # so bf16 rounds otherwise than there: the logits fed the same
+        # tokens
+        forced = serve_lm(lm, prompts(1), SERVE_STEPS,
+                          feed=torch.tensor(fed, device=dev))
+        out["forced_logits"] = [lg.cpu() for lg in forced.logits]
+        del forced
         # a batch of one: row 0 of the same prompts
         torch.cuda.reset_peak_memory_stats(dev)
         for f in counters.values():
@@ -2824,11 +2896,10 @@ def host_mesh_rank(ckpt_dir, fed, one_row_fed, small_batch):
                    one_row_decode_s=one.decode_s,
                    one_row_max_memory_allocated=torch.cuda
                    .max_memory_allocated(dev))
-        if dist.get_world_size() > 1:
-            forced = serve_lm(lm, prompts(1)[:1], ONE_ROW_STEPS,
-                              feed=torch.tensor(one_row_fed, device=dev))
-            out["one_row_forced_logits"] = [lg.cpu() for lg in forced.logits]
-            del forced
+        forced = serve_lm(lm, prompts(1)[:1], ONE_ROW_STEPS,
+                          feed=torch.tensor(one_row_fed, device=dev))
+        out["one_row_forced_logits"] = [lg.cpu() for lg in forced.logits]
+        del forced
         fault_feed = torch.tensor(fed, device=dev)[:, :HOST_FAULT_STEPS]
         out["fault_logits"] = {}
         # the last rank's rows where the prompts are split over the
@@ -2869,11 +2940,15 @@ def host_mesh_phase(torch, smi, train, served):
     HOST_LOSS_RTOL of the train phase's (``train``, same seed and
     batches); the checkpoint restored on the plain path equal to the
     mesh run's state bit for bit, its manifest the mesh's shape; one
-    flash launch a layer on the tensor cores; on one card the served
-    tokens equal the serve phase's (``served``), on several (each rank's
-    GEMMs see its rows alone) the run fed the serve phase's tokens has
-    each step's softmax within HOST_TV of it; the planted lost cache
-    shard reads above HOST_TV; the ranks agree; no group
+    flash launch a layer on the tensor cores; the run fed the serve
+    phase's tokens (``served``) has each step's softmax within HOST_TV
+    of it (each rank's GEMMs see its rows alone, and the partitioned
+    LM's prefill SSD is ``ssd_chunked`` where the serve phase's is
+    ``ssd_scan``, so the tokens themselves may differ); on one card the
+    served tokens equal the plain path's run on the partitioned LM's SSD
+    route (``served["chunked_tokens"]``, :func:`chunked_served`); the
+    planted lost cache shard reads above HOST_TV; the ranks agree; no
+    group
     up here after. Prints step seconds, peak memory, prefill and decode
     seconds beside the plain path's. A card count that does not divide
     the train phase's 4 rows trains them replicated, as the reference's
@@ -2910,13 +2985,12 @@ def host_mesh_phase(torch, smi, train, served):
     flash = out["serve_launches"]["flash_attention"]
     routes = out["flash_route_launches"]
     tokens_equal = out["tokens"] == served["tokens"]
+    chunked_equal = out["tokens"] == served["chunked_tokens"]
     same_tokens = sum(a == b for got, want in zip(out["tokens"],
                                                   served["tokens"])
                       for a, b in zip(got, want))
-    tvs, forced_same = [], None
-    if "forced_logits" in out:
-        tvs, forced_same = _fed_tv(out["forced_logits"], served["logits"],
-                                   cfg.vocab)
+    tvs, forced_same = _fed_tv(out["forced_logits"], served["logits"],
+                               cfg.vocab)
     fault_tv = {fault: _fed_tv(lgs, served["logits"], cfg.vocab)[0]
                 for fault, lgs in out["fault_logits"].items()}
     same_on_every_rank = all(r == out["every_rank"][0]
@@ -2947,8 +3021,9 @@ def host_mesh_phase(torch, smi, train, served):
          serve_launches=out["serve_launches"], flash_route_launches=routes,
          tokens_equal_serve_phase=tokens_equal,
          tokens_same_as_serve_phase=same_tokens,
+         tokens_equal_plain_on_chunked=chunked_equal,
          tokens_served=SERVE_BATCH * SERVE_STEPS,
-         fed_tv_per_step=tvs, fed_max_tv=max(tvs) if tvs else None,
+         fed_tv_per_step=tvs, fed_max_tv=max(tvs),
          fed_tv_bound=HOST_TV, fed_greedy_same=forced_same,
          fault_tv_per_step=fault_tv,
          fault_max_tv={k: max(v) for k, v in fault_tv.items()},
@@ -2967,9 +3042,10 @@ def host_mesh_phase(torch, smi, train, served):
                      f"manifest mesh {out['manifest_mesh']}")
     if not out["logits_finite"]:
         fails.append("non-finite served logits")
-    if n_cards == 1 and not tokens_equal:
-        fails.append("served tokens differ from the serve phase's")
-    if n_cards > 1 and not max(tvs) < HOST_TV:
+    if n_cards == 1 and not chunked_equal:
+        fails.append("served tokens differ from the plain path's on the "
+                     "same SSD route (ssd_chunked)")
+    if not max(tvs) < HOST_TV:
         fails.append(f"fed the serve phase's tokens, the softmax is {tvs} "
                      f"from it (total variation)")
     if not max(fault_tv[HOST_FAULT_GATED]) > HOST_TV:
@@ -3044,11 +3120,13 @@ def host_mesh_batches(cfg, n_cards, out, small, one_row):
     step's logged loss and grad norm within LOG_UNITS of the plain run's
     (``small``), the last step's loss within HOST_SMALL_LOSS_RTOL and its
     grad norm and moments' fingerprints within HOST_SMALL_STATE_RTOL;
-    one flash launch a layer on the tensor cores for the row; on one card its tokens equal
-    the plain path's run of the row (``one_row``), on several the run fed
-    its tokens within HOST_TV of it (the ranks' agreement on all of it is
-    gated with ``host_mesh_phase``'s). Returns the kernels' launch counts
-    of the served row."""
+    one flash launch a layer on the tensor cores for the row; the run fed
+    the tokens of the plain path's run of the row (``one_row``) within
+    HOST_TV of it; on one card the row's tokens equal the plain path's
+    run of it on the partitioned LM's SSD route
+    (``one_row["chunked_tokens"]``) (the ranks' agreement on all of it
+    is gated with ``host_mesh_phase``'s). Returns the kernels' launch
+    counts of the served row."""
     got = out["small"]
     logged = {k: [abs(a - b) for a, b in zip(got[k], small[k])]
               for k in LOG_UNITS}
@@ -3060,10 +3138,9 @@ def host_mesh_batches(cfg, n_cards, out, small, one_row):
     flash = out["one_row_launches"]["flash_attention"]
     routes = out["one_row_flash_route_launches"]
     tokens_equal = out["one_row_tokens"] == one_row["tokens"]
-    tvs, forced_same = [], None
-    if "one_row_forced_logits" in out:
-        tvs, forced_same = _fed_tv(out["one_row_forced_logits"],
-                                   one_row["logits"], cfg.vocab)
+    chunked_equal = out["one_row_tokens"] == one_row["chunked_tokens"]
+    tvs, forced_same = _fed_tv(out["one_row_forced_logits"],
+                               one_row["logits"], cfg.vocab)
     batch = HOST_SMALL_BATCH[n_cards > 1]
     emit("host_mesh_batches", arch=cfg.name, cards=n_cards,
          mesh=out["mesh"], train_global_batch=batch, seq_len=TRAIN_SEQ,
@@ -3084,8 +3161,9 @@ def host_mesh_batches(cfg, n_cards, out, small, one_row):
          serve_max_memory_allocated=out["one_row_max_memory_allocated"],
          plain_serve_max_memory_allocated=one_row["max_memory_allocated"],
          tokens=out["one_row_tokens"], plain_tokens=one_row["tokens"],
-         tokens_equal_plain=tokens_equal, fed_tv_per_step=tvs,
-         fed_max_tv=max(tvs) if tvs else None, fed_tv_bound=HOST_TV,
+         tokens_equal_plain=tokens_equal,
+         tokens_equal_plain_on_chunked=chunked_equal, fed_tv_per_step=tvs,
+         fed_max_tv=max(tvs), fed_tv_bound=HOST_TV,
          fed_greedy_same=forced_same)
     fails = []
     for k, unit in LOG_UNITS.items():
@@ -3104,9 +3182,10 @@ def host_mesh_batches(cfg, n_cards, out, small, one_row):
     if flash != cfg.n_layers or routes.get("tensor_core") != cfg.n_layers:
         fails.append(f"flash launched {flash} times ({routes}) for one row, "
                      f"expected {cfg.n_layers} on the tensor cores")
-    if n_cards == 1 and not tokens_equal:
-        fails.append("the row's tokens differ from the plain path's")
-    if n_cards > 1 and not max(tvs) < HOST_TV:
+    if n_cards == 1 and not chunked_equal:
+        fails.append("the row's tokens differ from the plain path's on the "
+                     "same SSD route (ssd_chunked)")
+    if not max(tvs) < HOST_TV:
         fails.append(f"fed the plain path's tokens, the row's softmax is "
                      f"{tvs} from it (total variation)")
     if fails:
@@ -3290,8 +3369,10 @@ def dryrun_real_cells(torch, smi):
     """hymba_1_5b at its published widths, bf16, seeded weights, on a 1x1
     mesh: the dry run of each of ``DRY_CELLS`` on the meta device, then
     the same step on the card. Gates: the meta FLOPs equal
-    FlopCounterMode's over the real step on cuda, and argument_bytes the
-    bytes of the real parameters, state, batch and cache. Printed:
+    FlopCounterMode's over the real step on cuda (a prefill's SSDs through
+    ``ssd_scan``'s operator on both, its fake kernel on meta), and
+    argument_bytes the bytes of the real parameters, state, batch and
+    cache. Printed:
     predicted peak (argument + temp bytes) against max_memory_allocated,
     the step's CUDA-event time against the roofline's step_s, and model
     FLOPs against the bf16 peak. Returns the kernels' launch counts over
@@ -3378,7 +3459,7 @@ def dryrun_real_cells(torch, smi):
         torch.cuda.empty_cache()
     launches = {name: f.launches for name, f in counters.items()}
     want = {name: 0 for name in launches}
-    want["flash_attention"] = cfg.n_layers * prefill_runs
+    want["flash_attention"] = want["ssd_scan"] = cfg.n_layers * prefill_runs
     if launches != want or flash.route_launches["tensor_core"] != \
             want["flash_attention"]:
         raise AssertionError(f"dry-run cells launched {launches} "
@@ -3712,6 +3793,24 @@ def one_row_served(torch, lm, prompts):
     return _served(res, torch.cuda.max_memory_allocated())
 
 
+def chunked_served(torch, lm, prompts):
+    """The plain path's runs on the SSD route the partitioned LM takes
+    (its DTensors run ``ssd_chunked``; ``layers.ssd_route`` is made to
+    pick it here): the greedy tokens of the serve phase's ``prompts``
+    (SERVE_STEPS) and of row 0 alone (ONE_ROW_STEPS), which the host
+    world on one card is held to exactly."""
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import layers
+    route = layers.ssd_route
+    layers.ssd_route = lambda *operands: "chunked"
+    try:
+        full = serve_lm(lm, prompts, SERVE_STEPS)
+        one = serve_lm(lm, prompts[:1], ONE_ROW_STEPS)
+    finally:
+        layers.ssd_route = route
+    return full.tokens.cpu().tolist(), one.tokens.cpu().tolist()
+
+
 def _served(res, peak):
     """What the host world is held to of a serve phase's run, on the
     host."""
@@ -3732,6 +3831,8 @@ def host_mesh_main(torch, smi) -> int:
     lm, prompts, res, _, peak = serve_phase(torch, "hymba_1_5b", smi)
     served = _served(res, peak)
     served["one_row"] = one_row_served(torch, lm, prompts)
+    served["chunked_tokens"], served["one_row"]["chunked_tokens"] = \
+        chunked_served(torch, lm, prompts)
     del lm, prompts, res
     torch.cuda.empty_cache()
     _, trained = train_main_phase(torch, smi)
@@ -3806,6 +3907,9 @@ def main() -> int:
     launches.update({k: served[k] for k in ("flash_attention", "ssd_scan")})
     hymba_served = _served(res, peak)
     hymba_served["one_row"] = one_row_served(torch, lm, prompts)
+    hymba_served["chunked_tokens"], \
+        hymba_served["one_row"]["chunked_tokens"] = chunked_served(
+            torch, lm, prompts)
     del lm, prompts, res
     torch.cuda.empty_cache()
     serve_agreement_phase(torch, "float32")

@@ -29,7 +29,9 @@
 //    f32 accumulators) over 64-key tiles.
 // 2. state_pass: S_c = exp(seg_last_c) S_{c-1} + dS_c over the 8-16 chunks
 //    of each (b, h), one thread per state element, each chunk's dS replaced
-//    by the state before it (6.5 MB of f32 at hymba's shape).
+//    by the state before it (6.5 MB of f32 at hymba's shape); the state
+//    after the last chunk (the prefill's hand-off to decode) goes to an
+//    optional f32 [b,h,p,n] output.
 // 3. chunk_out: one block of 4 warps per (b, h, chunk), which computes the
 //    segment sums and loads S_prev once and walks the chunk's 64-row tiles
 //    in order. Each warp takes 16 rows: the carried-state term
@@ -531,10 +533,12 @@ chunk_state_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
   if (threadIdx.x == 0) seglast[(long long)bhi * nc + c] = seg_last;
 }
 
-// states[bh][c] := the state before chunk c (the chunk's dS before)
+// states[bh][c] := the state before chunk c (the chunk's dS before);
+// final_state[bh] := the state after the last chunk, when it is not null
 __global__ void __launch_bounds__(kPassThreads)
 state_pass_kernel(float* __restrict__ states,
-                  const float* __restrict__ seglast, int nc, int PN) {
+                  const float* __restrict__ seglast,
+                  float* __restrict__ final_state, int nc, int PN) {
   const int e = blockIdx.x * kPassThreads + threadIdx.x;
   if (e >= PN) return;
   const long long bh = blockIdx.y;
@@ -556,6 +560,7 @@ state_pass_kernel(float* __restrict__ states,
       }
     }
   }
+  if (final_state) final_state[bh * PN + e] = s;
 }
 
 // four blocks an SM where every operand is bf16 (the registers spill a
@@ -862,8 +867,9 @@ cudaError_t launch_out(dim3 grid, int smem, cudaStream_t stream,
 template <typename TX, typename TB>
 cudaError_t launch(const void* x, const void* dt, const void* A_log,
                    const void* B, const void* C, const void* D, void* y,
-                   void* states, void* seglast, int batch, int S, int H,
-                   int P, int N, int chunk, cudaStream_t stream) {
+                   void* states, void* seglast, void* final_state,
+                   int batch, int S, int H, int P, int N, int chunk,
+                   cudaStream_t stream) {
   constexpr bool kSplitX = std::is_same<TX, float>::value;
   constexpr bool kSplitBC = std::is_same<TB, float>::value;
   const int nc = S / chunk;
@@ -878,8 +884,8 @@ cudaError_t launch(const void* x, const void* dt, const void* A_log,
   state_pass_kernel<<<dim3((P * N + kPassThreads - 1) / kPassThreads,
                            batch * H),
                       kPassThreads, 0, stream>>>(
-      static_cast<float*>(states), static_cast<const float*>(seglast), nc,
-      P * N);
+      static_cast<float*>(states), static_cast<const float*>(seglast),
+      static_cast<float*>(final_state), nc, P * N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 go(H, nc, batch);
@@ -904,13 +910,16 @@ const char* repro_cuda_error_string(int code) {
 
 // x, y [batch,S,H,P] in x's dtype (x_bf16: 1 = bf16, 0 = f32); dt [batch,S,H]
 // f32; A_log, D [H] f32; B, C [batch,S,N] in one dtype (bc_bf16); scratch:
-// states [batch*H, S/chunk, P, N] f32 and seglast [batch*H, S/chunk] f32.
-// All contiguous, on the device of `stream`; S % chunk == 0, P <= 128,
+// states [batch*H, S/chunk, P, N] f32 and seglast [batch*H, S/chunk] f32;
+// final_state [batch,H,P,N] f32, the state after the last row, or null
+// (nothing is written to it where S is 0: the caller fills that one). All
+// contiguous, on the device of `stream`; S % chunk == 0, P <= 128,
 // N <= 128, chunk <= 1024. Returns the launches' CUDA error code.
 int ssd_scan(const void* x, const void* dt, const void* A_log, const void* B,
              const void* C, const void* D, void* y, void* states,
-             void* seglast, int batch, int S, int H, int P, int N, int chunk,
-             int x_bf16, int bc_bf16, void* stream) {
+             void* seglast, void* final_state, int batch, int S, int H,
+             int P, int N, int chunk, int x_bf16, int bc_bf16,
+             void* stream) {
   if (batch <= 0 || S <= 0 || H <= 0 || P <= 0) return 0;
   if (P > kMaxP || N <= 0 || N > kMaxN || chunk <= 0 || chunk > kMaxChunk ||
       S % chunk != 0)
@@ -918,15 +927,15 @@ int ssd_scan(const void* x, const void* dt, const void* A_log, const void* B,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16 && bc_bf16)
     return launch<bf16, bf16>(x, dt, A_log, B, C, D, y, states, seglast,
-                              batch, S, H, P, N, chunk, s);
+                              final_state, batch, S, H, P, N, chunk, s);
   if (x_bf16)
     return launch<bf16, float>(x, dt, A_log, B, C, D, y, states, seglast,
-                               batch, S, H, P, N, chunk, s);
+                               final_state, batch, S, H, P, N, chunk, s);
   if (bc_bf16)
     return launch<float, bf16>(x, dt, A_log, B, C, D, y, states, seglast,
-                               batch, S, H, P, N, chunk, s);
+                               final_state, batch, S, H, P, N, chunk, s);
   return launch<float, float>(x, dt, A_log, B, C, D, y, states, seglast,
-                              batch, S, H, P, N, chunk, s);
+                              final_state, batch, S, H, P, N, chunk, s);
 }
 
 }  // extern "C"

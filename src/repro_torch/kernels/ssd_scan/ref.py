@@ -13,9 +13,11 @@ import torch
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
-            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            return_state: bool = False):
     """x: [b,s,h,p]; dt: [b,s,h] (already softplus-ed); A_log: [h];
-    B, C: [b,s,n]; D: [h]. Returns y: [b,s,h,p] (float32)."""
+    B, C: [b,s,n]; D: [h]. Returns y: [b,s,h,p] (float32), or (y, the
+    state after the last step [b,h,p,n], float32) when ``return_state``."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     A = -torch.exp(A_log.float())
@@ -29,4 +31,5 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         state = state * dA[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     y = torch.stack(ys, dim=1)                                      # [b,s,h,p]
-    return y + xf * D.float()[None, None, :, None]
+    y = y + xf * D.float()[None, None, :, None]
+    return (y, state) if return_state else y

@@ -30,8 +30,8 @@ What a record holds, and how it differs from the reference's:
   (:func:`cell_arguments`).
 - The step is traced once at global shapes with the config as given.
   ``cost.flops`` comes from ``torch.utils.flop_counter.FlopCounterMode``,
-  which counts matrix products (and ``flash_attention``, by its
-  registered formula) only, where XLA's ``cost_analysis`` counts
+  which counts matrix products (and ``flash_attention`` and ``ssd_scan``,
+  by their registered formulas) only, where XLA's ``cost_analysis`` counts
   elementwise work too: ``useful_flop_ratio`` is not comparable with the
   reference's. ``cost.bytes_accessed`` sums each aten op's tensor inputs
   and outputs (a view or an alias counts 0, and an ``empty`` allocation
@@ -58,10 +58,14 @@ What a record holds, and how it differs from the reference's:
 - ``lower_s`` is the seconds to build the meta LM and inputs, ``trace_s``
   the traced step's; nothing is compiled (``compile_s`` is None).
 
-The default ``attn_impl`` is ``"blockwise"``, as in the reference, so no
-kernel of the port is on the default path; ``--override
+The default ``attn_impl`` is ``"blockwise"``, as in the reference, so the
+attention kernel is off the default path; ``--override
 '{"attn_impl":"flash"}'`` traces the served prefill through
-``flash_attention``'s operator (its fake kernel on meta).
+``flash_attention``'s operator (its fake kernel on meta). An SSM's prefill
+SSD takes the route it takes on the card (``models.layers.ssd_route``):
+``ssd_scan``'s operator where the step records no autograd graph on plain
+tensors, ``ssd_chunked`` in training and on the partitioned (DTensor)
+trace.
 """
 from __future__ import annotations
 

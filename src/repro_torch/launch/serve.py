@@ -374,7 +374,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--spans", action="store_true",
                     help="serve inside repro_torch.tracing.recording() and "
                          "print the LM's spans (calls, host ms, device ms "
-                         "by path) and the MoE slots dropped")
+                         "by path), the MoE slots dropped and the "
+                         "other counters (the SSD's calls by route)")
     args = ap.parse_args(argv)
 
     if args.device is not None:

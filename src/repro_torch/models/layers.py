@@ -9,7 +9,10 @@ the reference's layouts ([B,S,H,D] activations, [in, out] weights,
 reference upcasts. Attention is *blockwise* (online softmax over KV
 blocks) by default; ``impl="flash"`` sends prefill attention to the
 hand-written CUDA kernel (``repro_torch.kernels.flash_attention``; its
-plain version on the CPU).
+plain version on the CPU). The SSM's whole-sequence SSD runs on the
+hand-written ``ssd_scan`` kernel where the call allows it (a plain CUDA
+or meta tensor, no autograd graph recorded; :func:`ssd_route`), else on
+the torch ``ssd_chunked``.
 
 The MoE layers keep the reference's dispatch groups, capacity, drop
 order and aux loss. Where torch and JAX differ they follow JAX: top-k
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from .. import tracing
 from ..kernels.flash_attention import flash_attention
+from ..kernels.ssd_scan import ssd_scan
 from .config import ModelConfig
 from .sharding import AttnPlan
 
@@ -983,6 +987,41 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, return_state: bool = False):
     return y
 
 
+def ssd_route(*operands: torch.Tensor) -> str:
+    """Where the SSD of a whole sequence runs for these operands (x, dt,
+    A_log, B, C, D): ``"kernel"``, the hand-written ``ssd_scan``, for
+    plain CUDA tensors on a call that records no autograd graph (grad
+    mode off, or no operand requiring grad), since the kernel has no
+    backward; ``"chunked"``, :func:`ssd_chunked`, otherwise: the CPU,
+    DTensors, training and remat's recompute. The meta device, the dry
+    run's stand-in for the card, routes as CUDA does (the kernel's
+    operator has a fake kernel and a FLOP formula). It reads the device,
+    the layout and the grad mode alone, so every SSM config takes the
+    same route on the same inputs."""
+    x = operands[0]
+    if x.device.type not in ("cuda", "meta") or \
+            any(map(is_sharded, operands)):
+        return "chunked"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return "chunked"
+    return "kernel"
+
+
+def ssd_prefill(x, dt, A_log, B, C, D, chunk: int,
+                return_state: bool = False):
+    """The SSD of a whole sequence on the route :func:`ssd_route` picks,
+    with :func:`ssd_chunked`'s arguments and results (the kernel's state
+    is f32 too, and y in x's dtype). While tracing is on it counts the
+    route's calls, ``ssd_kernel_calls`` or ``ssd_chunked_calls``, under
+    the top-level span (host integers: no launch, no synchronize)."""
+    if ssd_route(x, dt, A_log, B, C, D) == "kernel":
+        tracing.count("ssd_kernel_calls", 1)
+        return ssd_scan(x, dt, A_log, B, C, D, chunk=chunk,
+                        return_state=return_state)
+    tracing.count("ssd_chunked_calls", 1)
+    return ssd_chunked(x, dt, A_log, B, C, D, chunk, return_state)
+
+
 def ssd_decode_step(state, x, dt, A_log, B, C, D):
     """Single-token SSD recurrence. state: [b,h,p,n]; x: [b,h,p];
     dt: [b,h]; B,C: [b,n]. Returns (y [b,h,p], new state). On DTensors
@@ -1073,10 +1112,10 @@ def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xh = _viewed(xin, (b, s, h, hp))
     if cache is None:
         if want_cache:  # prefill: also hand the final state to decode
-            y, new_state = ssd_chunked(xh, dt, p["A_log"], Bc, Cc, p["D"],
+            y, new_state = ssd_prefill(xh, dt, p["A_log"], Bc, Cc, p["D"],
                                        cfg.ssm_chunk, return_state=True)
         else:
-            y = ssd_chunked(xh, dt, p["A_log"], Bc, Cc, p["D"],
+            y = ssd_prefill(xh, dt, p["A_log"], Bc, Cc, p["D"],
                             cfg.ssm_chunk)
             new_state = None
     else:

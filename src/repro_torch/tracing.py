@@ -37,7 +37,9 @@ under the top-level span open where it is called (``prefill``,
 ``decode_step``); tensors are added on the device and read in
 :func:`snapshot`. The MoE layer counts ``moe_routed_slots`` and
 ``moe_dropped_slots``, its (token, expert) slots and those past their
-expert's capacity.
+expert's capacity; the SSM counts its whole-sequence SSD calls by route,
+``ssd_kernel_calls`` (the hand-written kernel) and ``ssd_chunked_calls``
+(the torch chunked form).
 
 The record starts anew at the first span of each stretch in which tracing
 is on (a profiler started while tracing was off, or an outermost
@@ -310,7 +312,8 @@ def reset() -> None:
 
 def report(snap: Snapshot) -> str:
     """The record as a table, a line per path (calls, host ms, device ms),
-    then each top-level span's share of MoE slots dropped."""
+    then each top-level span's share of MoE slots dropped and its other
+    counters."""
     lines = [f"{'span':40s} {'calls':>7s} {'host ms':>11s} {'device ms':>11s}"]
     for path in sorted(snap.spans):
         n, host, dev = snap.spans[path]
@@ -323,4 +326,8 @@ def report(snap: Snapshot) -> str:
             lines.append(f"{top or '(no span)'}: {dropped} of {routed} "
                          f"routed MoE slots dropped "
                          f"({100.0 * dropped / routed:.2f}%)")
+        rest = [f"{k} {v}" for k, v in sorted(c.items())
+                if not k.startswith("moe_")]
+        if rest:
+            lines.append(f"{top or '(no span)'}: {', '.join(rest)}")
     return "\n".join(lines)

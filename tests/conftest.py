@@ -8,6 +8,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA device (the H100); skipped elsewhere")
+
+
 @pytest.fixture(autouse=True)
 def _seed():
     np.random.seed(0)
+

@@ -41,6 +41,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import dryrun, roofline, steps
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.models import layers
 from repro_torch.models.config import SHAPES, ShapeConfig, shape_applicable
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw
@@ -346,12 +347,19 @@ def _nbytes(tree):
 @pytest.mark.parametrize("attn", ["blockwise", "flash"])
 @pytest.mark.parametrize("arch", ["hymba_1_5b", "deepseek_moe_16b",
                                   "musicgen_large", "internvl2_76b"])
-def test_meta_counts_equal_the_real_step_on_one_device(arch, attn):
+def test_meta_counts_equal_the_real_step_on_one_device(arch, attn,
+                                                       monkeypatch):
     """On a 1x1 mesh: the meta FLOPs equal FlopCounterMode over the real
     step, and argument_bytes the bytes of the real params, state, batch
     and cache. With flash, the prefill goes through the operator's fake
     kernel on meta and its plain kernel on the CPU, counted by the same
-    formula; the wrapper launches nothing."""
+    formula; the wrapper launches nothing. The SSD takes on the CPU the
+    route it takes on meta, the card's (``ssd_route`` read as for a meta
+    tensor): a prefill's through ``ssd_scan``'s operator, counted by its
+    formula on both, a training step's on ``ssd_chunked``."""
+    route = layers.ssd_route
+    monkeypatch.setattr(layers, "ssd_route", lambda *ops: route(
+        *(t.to("meta") for t in ops)))
     cfg = get_config(arch).smoke().replace(attn_impl=attn)
     mesh = make_mesh((1, 1), ("data", "model"))
     for shp in (ShapeConfig("train", 32, 2, "train"),

@@ -284,6 +284,186 @@ def test_ssm_layer_prefill_then_decode_matches():
     assert tl.ssm_layer(cfg, tp, _t(x))[1] is None
 
 
+# ------------------------------------------------------ the SSD's route
+def _ssd_operands(device, b=2, s=24, h=3, p=4, n=5):
+    """x, dt, A_log, B, C, D for :func:`ssd_route` and ``ssd_prefill``."""
+    return [torch.randn(b, s, h, p, device=device),
+            torch.rand(b, s, h, device=device) * 0.5,
+            torch.rand(h, device=device), torch.randn(b, s, n, device=device),
+            torch.randn(b, s, n, device=device),
+            torch.rand(h, device=device)]
+
+
+def _stand_in(calls, name):
+    """A stand-in for an SSD that records each call's (name, chunk) in
+    ``calls`` and returns tensors of the SSD's shapes and dtypes."""
+    def run(x, dt, A_log, B, C, D, *args, **kwargs):
+        chunk = kwargs.get("chunk", args[0] if args else None)
+        calls.append((name, chunk))
+        y = torch.zeros_like(x)
+        if not kwargs.get("return_state", args[1] if len(args) > 1
+                          else False):
+            return y
+        b, _, h, p = x.shape
+        return y, x.new_zeros((b, h, p, B.shape[-1]), dtype=torch.float32)
+    return run
+
+
+@pytest.fixture
+def launcher(monkeypatch):
+    """A stand-in for the ``ssd_scan`` launch ``layers`` makes (this
+    machine has no card); the calls are in the list it gives."""
+    calls = []
+    monkeypatch.setattr(tl, "ssd_scan", _stand_in(calls, "kernel"))
+    return calls
+
+
+def _counted(fn):
+    """``fn()`` with tracing on; (its result, the counters of the record)."""
+    from repro_torch import tracing
+    tracing.reset()
+    try:
+        with tracing.recording():
+            out = fn()
+        return out, tracing.snapshot().counters
+    finally:
+        tracing.reset()
+
+
+def test_traced_cpu_prefill_counts_only_ssd_chunked_calls(launcher):
+    cfg = get_config("mamba2_370m").smoke()
+    lm = LM(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    _, counters = _counted(lambda: lm.prefill_with_cache(toks))
+    assert counters == {"prefill": {"ssd_chunked_calls": cfg.n_layers}}
+    assert launcher == []
+
+
+# (grad mode on, which operand requires grad or None): a CUDA call goes to
+# the kernel only where no autograd graph would be recorded
+_GRAD_CASES = {"no_grad": (False, None), "no_grad_with_leaf": (False, 0),
+               "grad_mode_no_leaf": (True, None), "grad_x": (True, 0),
+               "grad_A_log": (True, 2), "grad_D": (True, 5)}
+
+
+@pytest.mark.parametrize("case", list(_GRAD_CASES))
+def test_ssd_route_on_cuda_follows_the_grad_mode(case, launcher,
+                                                 monkeypatch):
+    """On fake CUDA tensors (``FakeTensorMode``: shapes and devices, no
+    card): a call recording no graph launches the kernel once and counts
+    ``ssd_kernel_calls``; one recording a graph runs ``ssd_chunked``
+    (a stand-in too: autograd needs a card for CUDA tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    grad, leaf = _GRAD_CASES[case]
+    kernel = not (grad and leaf is not None)
+    monkeypatch.setattr(tl, "ssd_chunked", _stand_in(launcher, "chunked"))
+    with FakeTensorMode():
+        ops = _ssd_operands("cuda")
+        if leaf is not None:
+            ops[leaf].requires_grad_()
+        with torch.set_grad_enabled(grad):
+            assert tl.ssd_route(*ops) == ("kernel" if kernel else "chunked")
+            (y, state), counters = _counted(
+                lambda: tl.ssd_prefill(*ops, 8, return_state=True))
+        assert y.device.type == state.device.type == "cuda"
+        assert tuple(state.shape) == (2, 3, 4, 5)
+        assert state.dtype == torch.float32
+    assert launcher == [("kernel" if kernel else "chunked", 8)]
+    name = "ssd_kernel_calls" if kernel else "ssd_chunked_calls"
+    assert counters == {"": {name: 1}}
+
+
+@pytest.mark.parametrize("device", ["cpu"])
+def test_ssd_route_off_cuda_is_chunked(device, launcher):
+    ops = _ssd_operands(device)
+    with torch.no_grad():
+        assert tl.ssd_route(*ops) == "chunked"
+        y = tl.ssd_prefill(*ops, 8)
+    assert launcher == [] and y.device.type == device
+    if device == "cpu":
+        torch.testing.assert_close(y, tl.ssd_chunked(*ops, 8), atol=0,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("case", list(_GRAD_CASES))
+def test_ssd_route_on_meta_follows_the_grad_mode(case):
+    """The meta device, the dry run's stand-in for the card, routes as
+    CUDA does: a call recording no graph goes through ``ssd_scan``'s
+    operator (its fake kernel: the shapes, no launch), one recording a
+    graph through ``ssd_chunked``; each counted by its counter."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    grad, leaf = _GRAD_CASES[case]
+    kernel = not (grad and leaf is not None)
+    ops = _ssd_operands("meta")
+    if leaf is not None:
+        ops[leaf].requires_grad_()
+    launches = ssd_scan.launches
+    with torch.set_grad_enabled(grad):
+        assert tl.ssd_route(*ops) == ("kernel" if kernel else "chunked")
+        (y, state), counters = _counted(
+            lambda: tl.ssd_prefill(*ops, 8, return_state=True))
+    assert ssd_scan.launches == launches
+    assert y.device.type == state.device.type == "meta"
+    assert tuple(y.shape) == (2, 24, 3, 4)
+    assert tuple(state.shape) == (2, 3, 4, 5)
+    assert state.dtype == torch.float32
+    assert (y.grad_fn is None) == kernel
+    name = "ssd_kernel_calls" if kernel else "ssd_chunked_calls"
+    assert counters == {"": {name: 1}}
+
+
+def test_ssd_route_of_a_dtensor_is_chunked(launcher):
+    """A DTensor (the partitioned LM's) takes ``ssd_chunked``'s local map,
+    on a fake world of one rank on the CPU (the host-world fixtures give
+    no DTensor on a card here)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch import mesh as mesh_mod
+    ops = _ssd_operands("cpu")
+    with mesh_mod.fake_world(1), torch.no_grad():
+        dm = mesh_mod.device_mesh(mesh_mod.make_mesh((1,), ("data",)))
+        dops = [distribute_tensor(t, dm, [Replicate()]) for t in ops]
+        assert tl.ssd_route(*dops) == "chunked"
+        (y, state), counters = _counted(
+            lambda: tl.ssd_prefill(*dops, 8, return_state=True))
+        y, state = y.full_tensor(), state.full_tensor()
+    assert launcher == []
+    assert counters == {"": {"ssd_chunked_calls": 1}}
+    want_y, want_state = tl.ssd_chunked(*ops, 8, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=0, rtol=0)
+    torch.testing.assert_close(state, want_state, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("want_cache", [False, True])
+def test_ssm_layer_prefill_takes_the_route(want_cache, launcher,
+                                           monkeypatch):
+    """``ssm_layer``'s whole-sequence SSD goes where :func:`ssd_route`
+    sends it (here made to pick the kernel on the CPU): the stand-in
+    launch runs once at the config's chunk, its state is the decode
+    cache's, and a decode step launches nothing."""
+    cfg = get_config("hymba_1_5b").smoke().replace(dtype="float32")
+    seen = []
+    monkeypatch.setattr(tl, "ssd_route",
+                        lambda *ops: seen.append(ops) or "kernel")
+    p = {k: _t(v) for k, v in _ssm_params(np.random.RandomState(5),
+                                           cfg).items()}
+    x = torch.randn(2, 13, cfg.d_model)
+    with torch.no_grad():
+        (out, cache), counters = _counted(
+            lambda: tl.ssm_layer(cfg, p, x, want_cache=want_cache))
+        assert tuple(out.shape) == tuple(x.shape)
+        assert launcher == [("kernel", cfg.ssm_chunk)]
+        assert counters == {"": {"ssd_kernel_calls": 1}}
+        assert len(seen) == 1 and seen[0][2] is p["A_log"]
+        assert seen[0][0].shape == (2, 13, cfg.ssm_heads, cfg.ssm_head_dim)
+        if want_cache:
+            assert cache["state"].dtype == torch.float32
+            tl.ssm_layer(cfg, p, x[:, :1], cache=cache)
+            assert len(launcher) == 1
+        else:
+            assert cache is None
+
+
 # ------------------------------------------------------ the whole slice
 # (arch, impl, config changes): the MoE cases also run at small groups and
 # half capacity, so that tokens are dropped and there are several groups

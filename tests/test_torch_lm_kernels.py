@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 import repro_torch
 from repro.kernels.flash_attention import flash_attention as jx_flash
@@ -16,8 +17,8 @@ from repro.kernels.ssd_scan import ssd_scan as jx_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_ref as jx_ssd_ref
 from repro.models.layers import ssd_chunked as jx_ssd_chunked
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
-from repro_torch.models.layers import ssd_chunked
+from repro_torch.kernels.ssd_scan import ssd_flops, ssd_ref, ssd_scan
+from repro_torch.models.layers import ssd_chunked, ssd_prefill
 
 repro_torch.set_default_device("cpu")
 torch.set_num_threads(1)
@@ -193,11 +194,43 @@ def test_ssd_plain_bf16_returns_x_dtype():
                                rtol=2e-3 + 2.0 ** -8)
 
 
-@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+SSD_STATE_SHAPES = [
     (2, 96, 2, 8, 8, 32),            # aligned
     (1, 50, 3, 4, 4, 16),            # unaligned seq -> padding path
     (2, 64, 4, 16, 16, 64),          # one chunk
-])
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_STATE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_plain_final_state_matches_chunked_and_jax(b, s, h, p, n, chunk,
+                                                       dtype):
+    """``return_state`` on the CPU route: y as without it, and the f32
+    state after the last row (the padded tail leaves it unchanged) against
+    ``ssd_chunked``'s and the JAX package's, on the same x/B/C values."""
+    x, dt, A_log, B, C, D = _ssd_inputs(np.random.RandomState(b * s + h), b,
+                                        s, h, p, n)
+    if dtype == torch.bfloat16:
+        x, B, C = _bf16(x), _bf16(B), _bf16(C)
+    args = (_t(x).to(dtype), _t(dt), _t(A_log), _t(B).to(dtype),
+            _t(C).to(dtype), _t(D))
+    y, state = ssd_scan(*args, chunk=chunk, return_state=True)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert tuple(state.shape) == (b, h, p, n)
+    torch.testing.assert_close(y, ssd_scan(*args, chunk=chunk), atol=0,
+                               rtol=0)
+    _, c_state = ssd_chunked(*args, chunk, return_state=True)
+    _, j_state = jx_ssd_chunked(*(jnp.asarray(a)
+                                  for a in (x, dt, A_log, B, C, D)),
+                                chunk, return_state=True)
+    # f32 on every side, sums in another order
+    np.testing.assert_allclose(state.numpy(), c_state.numpy(), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(state.numpy(), np.asarray(j_state), atol=1e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_STATE_SHAPES)
 @pytest.mark.parametrize("return_state", [False, True])
 def test_ssd_chunked_matches_jax(b, s, h, p, n, chunk, return_state):
     args = _ssd_inputs(np.random.RandomState(b * s + h), b, s, h, p, n)
@@ -237,11 +270,64 @@ def test_ssd_wrapper_rejects(case):
     elif case == "bc_mismatch":
         B = B.to(torch.bfloat16)
     elif case == "device":
-        x, dt, A_log, B, C, D = (t.to("meta") for t in (x, dt, A_log, B, C, D))
+        x = x.to("meta")
     elif case == "shape":
         dt = torch.zeros(b, s + 1, h)
     with pytest.raises(ValueError):
         ssd_scan(x, dt, A_log, B, C, D, **kw)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_STATE_SHAPES)
+@pytest.mark.parametrize("return_state", [False, True])
+def test_ssd_operator_counts_its_flops_on_cpu_and_meta(b, s, h, p, n, chunk,
+                                                       return_state):
+    """``torch.ops.repro_torch.ssd_scan``: FlopCounterMode counts the
+    chunked form's products by its formula, the same on the CPU (plain
+    kernel, unpadded) and on meta (fake kernel, padded to a chunk
+    multiple), and the fake kernel gives the CPU's shapes and dtypes."""
+    nc = -(-s // chunk)
+    want = b * h * nc * (chunk * (chunk + 1) * (n + p) + 4 * chunk * n * p)
+    assert ssd_flops((b, s, h, p), None, None, (b, s, n), None, None, None,
+                     chunk, return_state) == want
+    outs = {}
+    for dev in ("cpu", "meta"):
+        args = [t.to(dev) for t in map(_t, _ssd_inputs(
+            np.random.RandomState(s), b, s, h, p, n))]
+        args[0], args[3], args[4] = (args[i].to(torch.bfloat16)
+                                     for i in (0, 3, 4))
+        with FlopCounterMode(display=False) as fc:
+            outs[dev] = ssd_scan(*args, chunk=chunk,
+                                 return_state=return_state)
+        assert fc.get_total_flops() == want, dev
+    for got, cpu in zip(*(o if return_state else (o,)
+                          for o in (outs["meta"], outs["cpu"]))):
+        assert (got.shape, got.dtype) == (cpu.shape, cpu.dtype)
+
+
+def test_meta_ssd_prefill_counts_the_kernels_bytes():
+    """The dry run's view of a no-grad prefill SSD on meta: the operator's
+    FLOPs, and live bytes of y, the state and the kernel's f32 scratch
+    alone, far fewer than ``ssd_chunked``'s five-axis intermediates."""
+    from repro_torch.kernels.ssd_scan.kernel import scratch_numel
+    from repro_torch.launch import dryrun
+    b, s, h, p, n, chunk = SSD_STATE_SHAPES[0]
+    args = [t.to("meta") for t in map(_t, _ssd_inputs(
+        np.random.RandomState(0), b, s, h, p, n))]
+    args[0], args[3], args[4] = (args[i].to(torch.bfloat16)
+                                 for i in (0, 3, 4))
+    with torch.no_grad():
+        got = dryrun.trace_step(lambda *a: ssd_prefill(
+            *a, chunk, return_state=True), *args, known=args)
+        chunked = dryrun.trace_step(lambda *a: ssd_chunked(
+            *a, chunk, return_state=True), *args, known=args)
+    y_bytes, state_bytes = b * s * h * p * 2, b * h * p * n * 4
+    assert got["flops"] == ssd_flops((b, s, h, p), None, None, (b, s, n),
+                                     None, None, None, chunk, True)
+    assert got["output_bytes"] == y_bytes + state_bytes
+    assert got["temp_bytes"] == y_bytes + state_bytes + 4 * scratch_numel(
+        b, s, h, p, n, chunk)
+    five_axis = b * (s // chunk) * chunk * chunk * h * 4
+    assert chunked["temp_bytes"] > got["temp_bytes"] + five_axis
 
 
 def test_cpu_route_counts_no_launches():

@@ -48,6 +48,7 @@ from repro.launch.roofline import parse_collectives
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import device_mesh, fake_world, make_mesh
+from repro_torch.models import layers
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.model import LM, cache_specs, param_shapes, param_specs
 from repro_torch.models.sharding import placements, shard_shape, tp_size
@@ -217,10 +218,15 @@ def _shape(kind, batch=4, seq=64):
     ("deepseek_moe_16b", "train", {"moe_impl": "sort"}),
     ("deepseek_moe_16b", "prefill", {"moe_impl": "sort"}),
     ("deepseek_moe_16b", "decode", {"moe_impl": "sort"})])
-def test_partitioned_equals_unpartitioned_on_1x1(arch, kind, over):
+def test_partitioned_equals_unpartitioned_on_1x1(arch, kind, over,
+                                                 monkeypatch):
     """On a 1x1 mesh rank 0's local program is the whole step: the same
     FLOPs, bytes, temp and output bytes as the unpartitioned trace, and
-    no collective (the MoE layer under both dispatches too)."""
+    no collective (the MoE layer under both dispatches too). The
+    partitioned LM's DTensors run the SSD on ``ssd_chunked``, where an
+    unpartitioned prefill runs ``ssd_scan``'s operator
+    (``layers.ssd_route``), so both traces are made to take the first."""
+    monkeypatch.setattr(layers, "ssd_route", lambda *ops: "chunked")
     cfg = get_config(arch).smoke().replace(**over)
     mesh = make_mesh((1, 1), ("data", "model"))
     shp = _shape(kind)

@@ -236,6 +236,18 @@ def test_snapshot_arithmetic():
     assert snap.seconds(["prefill/none"], False) is None
 
 
+def test_report_prints_each_top_level_spans_counters():
+    snap = tracing.Snapshot(
+        spans={"prefill": (1, 1.0, None)},
+        counters={"prefill": {"ssd_kernel_calls": 32, "moe_routed_slots": 8,
+                              "moe_dropped_slots": 2},
+                  "value_and_grad": {"ssd_chunked_calls": 4}})
+    lines = tracing.report(snap).splitlines()
+    assert "prefill: 2 of 8 routed MoE slots dropped (25.00%)" in lines
+    assert "prefill: ssd_kernel_calls 32" in lines
+    assert "value_and_grad: ssd_chunked_calls 4" in lines
+
+
 def test_serve_cli_prints_the_spans(capsys):
     serve_mod.main(["--arch", "deepseek_moe_16b", "--smoke", "--device",
                     "cpu", "--spans", "--batch", "2", "--steps", "2"])
