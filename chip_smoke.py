@@ -209,6 +209,16 @@ SSD_SHAPE = dict(b=4, s=2048, h=32, p=100, n=16)
 # the benchmark's served prefill: 96 rows of hymba_1_5b's SSM (bf16 x/B/C,
 # f32 dt, chunk 256), the scan with the state it hands to decode
 SSD_SHAPE_SERVE = dict(SSD_SHAPE, b=96)
+# granite-4.0-h-small at its benchmark cell's 4 x 8192: the attention
+# layers (GQA, NoPE, scores times 1/128) and the Mamba layers (128 heads
+# of 64, state 128; bf16 x/B/C, f32 dt, chunk 256)
+GRANITE_ARCH = "granite-4.0-h-small"
+ATTN_SHAPE_GRANITE = dict(B=4, Hq=32, Hkv=8, S=8192, D=128)
+GRANITE_ATTN_SCALE = 1.0 / 128
+SSD_SHAPE_GRANITE = dict(b=4, s=8192, h=128, p=64, n=128)
+# attention_ref materialises f32 scores; above this many bytes of them it
+# runs one batch row at a time
+REF_SCORE_BYTES = 8 << 30
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, AGREE_STEPS = 4, 2048, 32, 8
 # the training phase: hymba_1_5b at its published widths, train_4k's
 # sequence (src/repro/models/config.py) at a global batch cut from 256 to 4
@@ -296,7 +306,8 @@ KERNEL_EXTRAS = ("note", "steps_per_launch", "ms_per_step",
                  "partitioned_shape", "partitioned_moe_path_launches",
                  "one_row_shape",
                  "partitioned_moe_shape", "host_mesh_path_launches",
-                 "host_mesh_one_row_path_launches", "serve_shape")
+                 "host_mesh_one_row_path_launches", "serve_shape",
+                 "granite_path_launches", "granite_shape")
 BF16_UNIT_ROUNDOFF = 2.0 ** -8   # a bf16 output is rounded once
 # the dry run: the sweep's meshes (multi_pod, and None for every arch x
 # shape or the (arch, shape) cells to run). Every cell on both meshes took
@@ -1135,11 +1146,14 @@ def flash_edge_phase(torch):
          route_launches=flash_attention.route_launches)
 
 
-def flash_causal_row(torch, gen, shape, arch):
+def flash_causal_row(torch, gen, shape, arch, scale=None):
     """flash_attention at ``arch``'s prefill shape in bf16 (causal, no
-    window, swapped [B,S,H,D] views) against attention_ref, timed beside
-    its plain version, its bound and SDPA's causal path; every launch on
-    the tensor-core route. Returns the row."""
+    window, swapped [B,S,H,D] views, scores times ``scale``, None for
+    1/sqrt(D)) against attention_ref at the same scale, timed beside its
+    plain version, its bound and SDPA's causal path; every launch on the
+    tensor-core route. With a ``scale`` the same launch at the default
+    scale must miss the reference by more than FLASH_TOL, so a scale
+    dropped on the way to the kernel fails. Returns the row."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
@@ -1148,36 +1162,54 @@ def flash_causal_row(torch, gen, shape, arch):
     tol = FLASH_TOL["torch.bfloat16"]
     q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
                .to(torch.bfloat16).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+
+    def plain():
+        if B * Hq * S * S * 4 <= REF_SCORE_BYTES:
+            return attention_ref(q, k, v, causal=True, scale=scale)
+        return torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        causal=True, scale=scale)
+                          for i in range(B)])
     before = dict(flash_attention.route_launches)
-    got = flash_attention(q, k, v, causal=True)
-    want = attention_ref(q, k, v, causal=True)
+    got = flash_attention(q, k, v, causal=True, scale=scale)
+    want = plain()
     torch.cuda.synchronize()
     err, ok = _close(got, want, tol, tol)
     if not ok or not torch.isfinite(got).all():
-        raise AssertionError(f"flash_attention bf16 {arch}: max abs err "
-                             f"{err} beyond atol=rtol={tol}")
+        raise AssertionError(f"flash_attention bf16 {arch} scale {scale}: "
+                             f"max abs err {err} beyond atol=rtol={tol}")
     del got
+    row = {"arch": arch}
+    if scale is not None:
+        row["scale"] = scale
+        row["default_scale_max_abs_err"], near = _close(
+            flash_attention(q, k, v, causal=True), want, tol, tol)
+        if near:
+            raise AssertionError(f"flash_attention {arch}: the default "
+                                 f"scale also meets the reference at scale "
+                                 f"{scale}; the check cannot see a scale "
+                                 f"left out")
 
     def lib_causal():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
+                                              scale=scale, enable_gqa=True)
     lib_err, _ = _close(lib_causal(), want, tol, tol)
     del want
-    row = {"arch": arch,
-           "ms": cuda_ms(torch, lambda: flash_attention(q, k, v,
-                                                        causal=True)),
-           "plain_ms": cuda_ms(torch, lambda: attention_ref(q, k, v,
-                                                            causal=True),
-                               reps=10),
-           "library_ms": cuda_ms(torch, lib_causal),
-           "bound": flash_bound_ms(B, Hq, Hkv, S, D, 0, q.element_size(),
-                                   BF16_TENSOR_FLOPS),
-           "max_abs_err": err, "library_max_abs_err": lib_err,
-           "shape": f"q [{B},{Hq},{S},{D}] k/v [{B},{Hkv},{S},{D}] bfloat16 "
-                    f"window 0 causal, swapped [B,S,H,D] views",
-           "library": "scaled_dot_product_attention(is_causal=True)"}
+    row.update({
+        "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True,
+                                                     scale=scale)),
+        "plain_ms": cuda_ms(torch, plain, reps=10 if S <= 2048 else 3),
+        "library_ms": cuda_ms(torch, lib_causal),
+        "bound": flash_bound_ms(B, Hq, Hkv, S, D, 0, q.element_size(),
+                                BF16_TENSOR_FLOPS),
+        "max_abs_err": err, "library_max_abs_err": lib_err,
+        "shape": f"q [{B},{Hq},{S},{D}] k/v [{B},{Hkv},{S},{D}] bfloat16 "
+                 f"window 0 causal, swapped [B,S,H,D] views",
+        "library": "scaled_dot_product_attention(is_causal=True"
+                   + (f", scale={scale})" if scale else ")")})
     emit("flash_attention", tolerance=tol, **row)
     _check_route(flash_attention, before, "tensor_core")
+    del q, k, v
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1294,6 +1326,10 @@ def lm_kernel_phase(torch):
     flash_causal_row(torch, gen, ATTN_SHAPE_D128, "minitron_8b")
     out["flash_attention_moe"] = flash_causal_row(torch, gen, ATTN_SHAPE_MOE,
                                                   "deepseek_moe_16b")
+    # granite-4.0-h-small's NoPE layers: GQA at 8192 tokens, scores x 1/128
+    out["flash_attention_granite"] = flash_causal_row(
+        torch, gen, ATTN_SHAPE_GRANITE, GRANITE_ARCH,
+        scale=GRANITE_ATTN_SCALE)
     out["flash_attention"]["one_row_shape"] = flash_one_row(torch, gen)
     emit("flash_routes", route_launches=flash_attention.route_launches,
          layout_copies=flash_attention.layout_copies)
@@ -1355,19 +1391,24 @@ def lm_kernel_phase(torch):
                 out["ssd_scan"] = row
             del got, chunked, state, c_state
         del want
-    out["ssd_scan"]["serve_shape"] = ssd_serve_row(torch, gen)
+    out["ssd_scan"]["serve_shape"] = ssd_shape_row(
+        torch, gen, SSD_SHAPE_SERVE, "ssd_scan_serve_shape")
+    out["ssd_scan"]["granite_shape"] = ssd_shape_row(
+        torch, gen, SSD_SHAPE_GRANITE, "ssd_scan_granite_shape")
     return out
 
 
-def ssd_serve_row(torch, gen):
-    """ssd_scan with its final state at the benchmark's served prefill
-    (``SSD_SHAPE_SERVE``: 96 rows, bf16 x/B/C, f32 dt, chunk 256), held to
-    ``ssd_chunked`` (y within SSD_TOL plus two bf16 roundings, the state
-    within SSD_TOL) and timed beside it and the sequential ``ssd_ref``."""
+def ssd_shape_row(torch, gen, shape, phase):
+    """ssd_scan with its final state at a served prefill's ``shape`` (bf16
+    x/B/C, f32 dt, chunk 256: ``SSD_SHAPE_SERVE``, the benchmark's 96 rows
+    of hymba; ``SSD_SHAPE_GRANITE``, a granite Mamba layer at state 128),
+    held to ``ssd_chunked`` (y within SSD_TOL plus two bf16 roundings, the
+    state within SSD_TOL) and timed beside it and the sequential
+    ``ssd_ref``; emitted as ``phase``."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
     from repro_torch.models.layers import ssd_chunked
     dev = torch.device("cuda", 0)
-    b, s, h, p, n = (SSD_SHAPE_SERVE[k] for k in ("b", "s", "h", "p", "n"))
+    b, s, h, p, n = (shape[k] for k in ("b", "s", "h", "p", "n"))
     chunk = 256
     x, Bm, Cm = (torch.randn(shape, generator=gen, device=dev)
                  .to(torch.bfloat16)
@@ -1383,9 +1424,8 @@ def ssd_serve_row(torch, gen):
                          SSD_TOL + 2 * BF16_UNIT_ROUNDOFF)
     s_err, s_ok = _close(state, c_state, SSD_TOL, SSD_TOL)
     if not (y_ok and s_ok) or not torch.isfinite(got).all():
-        raise AssertionError(f"ssd_scan at the serve shape: max abs err "
-                             f"{y_err} in y, {s_err} in the final state "
-                             f"against ssd_chunked")
+        raise AssertionError(f"{phase}: max abs err {y_err} in y, {s_err} "
+                             f"in the final state against ssd_chunked")
     del got, state, chunked, c_state
     torch.cuda.empty_cache()
     row = {
@@ -1402,7 +1442,7 @@ def ssd_serve_row(torch, gen):
         "chunked_max_abs_err": y_err, "state_max_abs_err": s_err,
         "shape": f"x [{b},{s},{h},{p}] B/C [{b},{s},{n}] bfloat16 x/B/C, "
                  f"dt f32, chunk {chunk}, final state [{b},{h},{p},{n}] f32"}
-    emit("ssd_scan_serve_shape", atol=SSD_TOL, **row)
+    emit(phase, atol=SSD_TOL, **row)
     del args, x, Bm, Cm, dt
     torch.cuda.empty_cache()
     return row
@@ -1984,14 +2024,26 @@ def serve_prompts(torch, vocab, seed=1):
                              seed), device=dev)
 
 
+def _mixer_layers(cfg):
+    """(attention layers, SSM layers) of ``cfg``: every layer of its
+    family's kinds, or a patterned stack's layers of each kind."""
+    from repro_torch.models.config import PatternConfig
+    if isinstance(cfg, PatternConfig):
+        return (len(cfg.layers_of("attention")), len(cfg.layers_of("mamba")))
+    return (0 if cfg.is_attention_free else cfg.n_layers,
+            cfg.n_layers if cfg.has_ssm else 0)
+
+
 def serve_phase(torch, arch, smi):
     """A main path of the LM: ``arch`` at its published widths in bf16 with
     attn_impl="flash", weights from LM.init (seeded), 4 prompts of 2048
     seeded tokens prefilled into the ring buffer (2048 slots, or the
     config's window), then 32 greedy decode steps; then where its time
-    goes (``serve_profile``). Gates: one flash launch per layer, all on
-    the tensor cores, no layout copies, one ssd_scan launch per SSM
-    layer, finite logits. Returns (the LM,
+    goes (``serve_profile``). Gates, on the launch counts zeroed after the
+    warm-up: one flash launch per attention layer, all on the tensor
+    cores, no layout copies, one ssd_scan launch per SSM layer (a
+    patterned stack's layers each of one kind: granite-4.0-h-small 4 and
+    36), finite logits. Returns (the LM,
     the prompts, the serve result, the launch counts of the run, its peak
     memory)."""
     from repro_torch.configs import get_config
@@ -2019,19 +2071,20 @@ def serve_phase(torch, arch, smi):
     launches = {name: f.launches for name, f in counters.items()}
     flash = counters["flash_attention"]
     routes = dict(flash.route_launches)
-    if launches["flash_attention"] != cfg.n_layers or \
-            routes["tensor_core"] != cfg.n_layers:
+    n_attn, n_ssm = _mixer_layers(cfg)
+    if launches["flash_attention"] != n_attn or \
+            routes["tensor_core"] != n_attn:
         raise AssertionError(f"{cfg.name} prefill launched flash_attention "
                              f"{launches['flash_attention']} times ({routes}),"
-                             f" expected one per layer ({cfg.n_layers}), all "
-                             f"on the tensor cores")
+                             f" expected one per attention layer ({n_attn}), "
+                             f"all on the tensor cores")
     if flash.layout_copies:
         raise AssertionError(f"the served prefill copied "
                              f"{flash.layout_copies} operands before flash")
-    if launches["ssd_scan"] != (cfg.n_layers if cfg.has_ssm else 0):
+    if launches["ssd_scan"] != n_ssm:
         raise AssertionError(f"{cfg.name} prefill launched ssd_scan "
                              f"{launches['ssd_scan']} times, expected one "
-                             f"per SSM layer")
+                             f"per SSM layer ({n_ssm})")
     finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits)
     if not finite or res.tokens.shape != (SERVE_BATCH, SERVE_STEPS):
         raise AssertionError(f"{cfg.name} serve: non-finite logits or wrong "
@@ -2039,6 +2092,7 @@ def serve_phase(torch, arch, smi):
     moe = dict(n_experts=cfg.n_experts, n_shared_experts=cfg.n_shared_experts,
                top_k=cfg.top_k, moe_impl=cfg.moe_impl) if cfg.n_experts else {}
     emit("serve", arch=cfg.name, nvidia_smi=smi, n_layers=cfg.n_layers,
+         attention_layers=n_attn, ssm_layers=n_ssm,
          d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
          attn_impl=cfg.attn_impl, **moe, requests=SERVE_BATCH,
          prompt_len=SERVE_PROMPT,
@@ -3927,6 +3981,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_f32_agreement_phase(torch)
     torch.cuda.empty_cache()
+    _, _, _, granite_launches, _ = serve_phase(torch, GRANITE_ARCH, smi)
+    torch.cuda.empty_cache()
     train_launches, trained = train_phase(torch, smi)
     host_launches, one_row_launches = host_mesh_phase(torch, smi, trained,
                                                       hymba_served)
@@ -3939,6 +3995,15 @@ def main() -> int:
     emit("dryrun_and_examples", seconds=time.perf_counter() - t0)
     times.update(lm_times)
     moe_row = times.pop("flash_attention_moe")
+    granite_row = times.pop("flash_attention_granite")
+    times["flash_attention"]["granite_shape"] = {
+        k: granite_row[k] for k in ("shape", "scale", "ms", "plain_ms",
+                                    "library_ms", "max_abs_err",
+                                    "default_scale_max_abs_err")} | {
+        "bound_ms": granite_row["bound"][0],
+        "bound_by": granite_row["bound"][1]}
+    for name in ("flash_attention", "ssd_scan"):
+        times[name]["granite_path_launches"] = granite_launches[name]
     times["flash_attention"].update(
         moe_path_launches=moe_launches["flash_attention"],
         moe_shape={k: moe_row[k] for k in ("shape", "ms", "plain_ms",

@@ -2,7 +2,10 @@
 
 ``get_config(name)`` returns the exact published configuration;
 ``get_config(name).smoke()`` the reduced same-family config used by CPU
-smoke tests. ``ARCHS`` lists all assigned ids.
+smoke tests. ``ARCHS`` lists all assigned ids, which the JAX package
+shares; ``PATTERN_ARCHS`` the architectures of the port alone, stacks of
+layers of different kinds (``models.config.PatternConfig``), which
+:func:`canonical` and :func:`get_config` resolve too.
 """
 from __future__ import annotations
 
@@ -24,13 +27,18 @@ ARCHS: List[str] = [
     "mamba2_370m",
 ]
 
+PATTERN_ARCHS: List[str] = [
+    "granite_4_0_h_small",
+]
+
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
 def canonical(name: str) -> str:
     name = name.replace("-", "_").replace(".", "_")
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
+    if name not in ARCHS and name not in PATTERN_ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{ARCHS + PATTERN_ARCHS}")
     return name
 
 

@@ -1,9 +1,11 @@
 // Forward flash attention (GQA, causal and/or sliding window) over the
 // kernel layout [B, H, S, D]:
 //
-//   o[b,h,i,:] = softmax_j(mask(q[b,h,i,:] . k[b,h/g,j,:] / sqrt(D))) v[b,h/g,j,:]
+//   o[b,h,i,:] = softmax_j(mask(q[b,h,i,:] . k[b,h/g,j,:] * c)) v[b,h/g,j,:]
 //
-// with query i at absolute position q_offset + i, key j at position j, and
+// with the score scale c given at launch (1/sqrt(D) unless the caller names
+// another),
+// query i at absolute position q_offset + i, key j at position j, and
 // the mask  j < Sk  &&  (!causal || j <= qpos)  &&  (!window || j > qpos - window).
 //
 // Replaces the TPU kernel of the JAX package:
@@ -255,7 +257,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const long long* st, int B, int Hq, int Hkv, int Sq,
                    int Sk, int causal, int window, int q_offset,
-                   cudaStream_t stream) {
+                   double scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -268,7 +270,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so,
       Hq / Hkv, Sq, Sk, causal, window, q_offset,
-      1.0f / sqrtf(static_cast<float>(D)));
+      scale > 0 ? static_cast<float>(scale)
+                : 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -871,7 +874,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const long long* st, int B, int Hq, int Hkv, int Sq,
                    int Sk, int causal, int window, int q_offset,
-                   cudaStream_t stream) {
+                   double scale, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -895,7 +898,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                               stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), so, Hq, Hq / Hkv, Sq, Sk, causal,
       window, q_offset, static_cast<int>(n_qt),
-      static_cast<float>(kLog2e / sqrt(static_cast<double>(D))));
+      static_cast<float>(scale > 0 ? kLog2e * scale
+                                   : kLog2e / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
@@ -944,18 +948,19 @@ const char* repro_cuda_error_string(int code) {
 // Both entry points, one per route: q [B,Hq,Sq,D], k and v [B,Hkv,Sk,D], o [B,Hq,Sq,D] on
 // the device of `stream`, with Hq % Hkv == 0 and D in {16, 32, 64, 128}.
 // `strides` holds 12 element strides: the B, H and S strides of q, k, v and
-// o in that order (D is unit-stride). window = 0 means no window. Each
+// o in that order (D is unit-stride). window = 0 means no window. `scale`
+// multiplies the scores q.k before the softmax; 0 means 1/sqrt(D). Each
 // returns the launch's CUDA error code.
 
 // f32 operands: the SIMT kernel; any strides.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         const long long* strides, int B, int Hq, int Hkv,
                         int Sq, int Sk, int D, int causal, int window,
-                        int q_offset, void* stream) {
+                        int q_offset, double scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0) return cudaErrorInvalidValue;
   return by_head_dim<SimtF32>(D, q, k, v, o, strides, B, Hq, Hkv, Sq, Sk,
-                              causal, window, q_offset,
+                              causal, window, q_offset, scale,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -965,7 +970,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int B, int Hq,
                          int Hkv, int Sq, int Sk, int D, int causal,
-                         int window, int q_offset, void* stream) {
+                         int window, int q_offset, double scale,
+                         void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0) return cudaErrorInvalidValue;
   if (!aligned16(q, strides, B, Hq, Sq) ||
@@ -974,7 +980,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
       !aligned16(o, strides + 9, B, Hq, Sq))
     return cudaErrorMisalignedAddress;
   return by_head_dim<TensorCoreBf16>(D, q, k, v, o, strides, B, Hq, Hkv, Sq,
-                                     Sk, causal, window, q_offset,
+                                     Sk, causal, window, q_offset, scale,
                                      static_cast<cudaStream_t>(stream));
 }
 

@@ -22,19 +22,20 @@ def _entry(route: str):
     lib = load(_NAME)
     fn = getattr(lib, ENTRIES[route])
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
-        [ctypes.c_void_p]
+        [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, route: str, causal: bool, window: int,
-                         q_offset: int) -> torch.Tensor:
+                         q_offset: int, scale=None) -> torch.Tensor:
     """Launch the kernel of ``route`` (a key of ``ENTRIES``) on the
     current stream; the caller has checked device, dtype and shapes, every
     D axis is unit-stride and, on the tensor-core route, every base and
     B/H/S stride is 16-byte aligned. The output has q's strides, so a swapped [B,S,H,D]
-    view comes back as one."""
+    view comes back as one. ``scale`` (None: 1/sqrt(D), computed by the
+    kernel's launch as before) scales the scores."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -45,6 +46,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               ctypes.addressof(strides), B, Hq, Hkv, Sq, Sk, D, int(causal),
               int(window), int(q_offset),
+              0.0 if scale is None else float(scale),
               torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, _NAME, code)
     return out

@@ -23,7 +23,7 @@ times as much per call; the launch counts stay on the wrapper.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,9 +63,12 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, scale: Optional[float] = None
+                    ) -> torch.Tensor:
     """q: [B,Hq,Sq,D]; k, v: [B,Hkv,Sk,D]; q position i is absolute
-    position q_offset + i, k position j is j. Returns [B,Hq,Sq,D] in q's
+    position q_offset + i, k position j is j; the scores q.k are scaled by
+    ``scale`` (None: 1/sqrt(D)) before the softmax, inside the kernel, so
+    q is rounded once. Returns [B,Hq,Sq,D] in q's
     dtype. D must be one of ``HEAD_DIMS`` and q, k, v share one dtype of
     ``DTYPES``; anything else raises ``ValueError`` on every device. The
     kernel has no backward: with grad mode on and any of q, k, v requiring
@@ -98,26 +101,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "torch.no_grad() or on tensors that do not require grad")
     if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _OP(q, k, v, bool(causal), int(window), int(q_offset))
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale must be positive, got "
+                         f"{scale}")
+    return _OP(q, k, v, bool(causal), int(window), int(q_offset),
+               None if scale is None else float(scale))
 
 
-def _plain(q, k, v, causal, window, q_offset):
+def _plain(q, k, v, causal, window, q_offset, scale=None):
     return attention_ref(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
+                         q_offset=q_offset, scale=scale)
 
 
-def _launch(q, k, v, causal, window, q_offset):
+def _launch(q, k, v, causal, window, q_offset, scale=None):
     route, copies = flash_route(q, k, v)
     q, k, v = (t.contiguous() if c else t for t, c in zip((q, k, v), copies))
     out = flash_attention_cuda(q, k, v, route=route, causal=causal,
-                               window=window, q_offset=q_offset)
+                               window=window, q_offset=q_offset, scale=scale)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     flash_attention.layout_copies += sum(copies)
     return out
 
 
-def _fake(q, k, v, causal, window, q_offset):
+def _fake(q, k, v, causal, window, q_offset, scale=None):
     # the kernel's output has q's strides (``flash_attention_cuda``)
     return torch.empty_like(q)
 
@@ -133,9 +140,10 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int,
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset, *args,
-                out_shape=None, **kwargs) -> int:
-    """4·D FLOPs (QK^T and PV) per visible (q, k) pair per q head."""
+def flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset,
+                scale=None, *args, out_shape=None, **kwargs) -> int:
+    """4·D FLOPs (QK^T and PV) per visible (q, k) pair per q head, whatever
+    the scale."""
     b, hq, sq, d = q_shape
     return 4 * d * b * hq * visible_pairs(sq, k_shape[2], causal, window,
                                           q_offset)
@@ -143,7 +151,7 @@ def flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset, *args,
 
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
-            "int window, int q_offset) -> Tensor")
+            "int window, int q_offset, float? scale=None) -> Tensor")
 _LIB.impl("flash_attention", _plain, "CPU")
 _LIB.impl("flash_attention", _launch, "CUDA")
 torch.library.register_fake("repro_torch::flash_attention", _fake, lib=_LIB)

@@ -90,7 +90,9 @@ def serve_lm(lm: LM, prompts: torch.Tensor, steps: int, *,
     On the partitioned LM (a host world's mesh) every rank passes the
     whole ``prompts`` (and ``feed``); each keeps its rows over "data"
     (:meth:`LM.split_rows`), and the result's tokens and logits are
-    gathered whole on every rank after the timed run."""
+    gathered whole on every rank after the timed run. While tracing is on
+    it counts the cache's bytes by kind (``LM.cache_bytes``), outside any
+    span of the LM's."""
     vocab = lm.cfg.vocab
     b, s = prompts.shape
     prompts = lm.split_rows(prompts)
@@ -102,6 +104,9 @@ def serve_lm(lm: LM, prompts: torch.Tensor, steps: int, *,
         lg, cache = lm.prefill_with_cache(prompts, window=window)
         _sync(lm.device)
         prefill_s = time.perf_counter() - t0
+        if tracing.active():
+            for name, n in lm.cache_bytes(cache).items():
+                tracing.count(name, n)
         logits = [lg]
         tok = _greedy(lg, vocab)
         fed, outs = [], []

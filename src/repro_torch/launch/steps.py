@@ -12,7 +12,9 @@ partitioned LM (``LM(cfg, device, mesh=...)``) the train step constrains
 the gradients to the optimizer state's layout, as the reference does under
 ``zero1``: the data-parallel sum is then a reduce-scatter onto the
 data-sharded moments, and without ``zero1`` an all-reduce onto the
-parameters' layout.
+parameters' layout: the span ``grad_reduce``, whose counter
+``grad_reduce_bytes`` adds the bytes of this rank's gradient shards
+handed to it.
 """
 from __future__ import annotations
 
@@ -112,8 +114,13 @@ def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
     def train_step(opt_state, batch):
         loss, metrics, grads = value_and_grad(lm, batch)
         if grad_layout is not None:
-            grads = {k: g.redistribute(lm.mesh, grad_layout[k])
-                     for k, g in grads.items()}
+            with tracing.span("grad_reduce"):
+                if tracing.active():
+                    tracing.count("grad_reduce_bytes", sum(
+                        g.to_local().numel() * g.element_size()
+                        for g in grads.values()))
+                grads = {k: g.redistribute(lm.mesh, grad_layout[k])
+                         for k, g in grads.items()}
         opt_state, opt_metrics = adamw.update(opt_cfg, grads, opt_state,
                                               params)
         return opt_state, dict(metrics, loss=loss, **opt_metrics)

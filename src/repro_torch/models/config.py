@@ -4,6 +4,10 @@
 One frozen dataclass covers every assigned architecture family:
 dense GQA, MoE (shared + routed experts), SSM (Mamba2/SSD), hybrid
 (parallel attention+SSM heads), and modality-stub backbones (audio/VLM).
+:class:`PatternConfig`, a subclass the JAX package has no counterpart of,
+describes a stack whose layers are of different kinds (Mamba2 or
+attention layers in a pattern, each with the family's feed-forward), with
+the scalar multipliers and options such a published model states.
 """
 from __future__ import annotations
 
@@ -115,6 +119,64 @@ class ModelConfig:
             frontend_len=min(self.frontend_len, 8),
             remat=False,
         )
+
+
+LAYER_KINDS = ("mamba", "attention")
+
+
+@dataclass(frozen=True)
+class PatternConfig(ModelConfig):
+    """A stack of layers of different kinds: layer i is a Mamba2 mixer
+    (``"mamba"``) or an attention mixer (``"attention"``) as
+    ``layer_kinds[i]`` says, each followed by the MoE (``n_experts`` is
+    required). Layer i computes
+    ``x += residual_scale * mixer(rmsnorm(x))`` then
+    ``x += residual_scale * ffn(rmsnorm(x))``; the stack starts from
+    ``embed_scale * embed[tokens]`` and its logits are divided by
+    ``logit_scale``. Attention takes rotary positions only with ``rope``
+    and scales its scores by ``attn_scale`` (0: 1/sqrt(head_dim)); the
+    SSM's causal convolutions add a bias with ``conv_bias``."""
+    layer_kinds: Tuple[str, ...] = ()
+    rope: bool = True
+    attn_scale: float = 0.0
+    embed_scale: float = 1.0
+    residual_scale: float = 1.0
+    logit_scale: float = 1.0
+    conv_bias: bool = False
+
+    def __post_init__(self):
+        kinds = tuple(self.layer_kinds)
+        object.__setattr__(self, "layer_kinds", kinds)
+        if len(kinds) != self.n_layers or not set(kinds) <= set(LAYER_KINDS):
+            raise ValueError(f"{self.name}: layer_kinds must give one of "
+                             f"{LAYER_KINDS} for each of {self.n_layers} "
+                             f"layers, got {kinds}")
+        if "attention" in kinds and not self.n_heads:
+            raise ValueError(f"{self.name}: attention layers need heads")
+        if "mamba" in kinds and not self.ssm_state:
+            raise ValueError(f"{self.name}: mamba layers need ssm_state")
+        if not self.n_experts:
+            raise ValueError(f"{self.name}: a patterned stack's feed-forward "
+                             f"is the MoE; n_experts must be set")
+
+    def layers_of(self, kind: str) -> Tuple[int, ...]:
+        """The indices of the layers of ``kind``, in order."""
+        return tuple(i for i, k in enumerate(self.layer_kinds) if k == kind)
+
+    def smoke(self) -> "PatternConfig":
+        """The reduced config of :meth:`ModelConfig.smoke` over three
+        layers, each kind kept: the kinds in order of first appearance,
+        then the first kind again."""
+        kinds = tuple(dict.fromkeys(self.layer_kinds))
+        kinds = kinds + kinds[:1]
+        own = {f.name for f in dataclasses.fields(PatternConfig)} - \
+            {f.name for f in dataclasses.fields(ModelConfig)}
+        fields = dataclasses.asdict(self)
+        plain = ModelConfig(**{k: v for k, v in fields.items()
+                               if k not in own})
+        fields.update(dataclasses.asdict(plain.smoke()),
+                      n_layers=len(kinds), layer_kinds=kinds)
+        return PatternConfig(**fields)
 
 
 @dataclass(frozen=True)

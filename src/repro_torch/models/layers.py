@@ -192,12 +192,21 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 
 # ------------------------------------------------------------- attention
-def naive_attention(q, k, v, q_pos, k_pos, window: int = 0):
-    """O(S_q*S_k) reference. q: [B,Sq,H,D], k/v: [B,Sk,KV,D]."""
+def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
+    """q in f32 times the softmax scale (``None``: 1/sqrt(D))."""
+    if scale is None:
+        return q.float() / math.sqrt(q.shape[-1])
+    return q.float() * scale
+
+
+def naive_attention(q, k, v, q_pos, k_pos, window: int = 0,
+                    scale: Optional[float] = None):
+    """O(S_q*S_k) reference. q: [B,Sq,H,D], k/v: [B,Sk,KV,D]; scores
+    scaled by ``scale`` (None: 1/sqrt(D))."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
-    qf = q.float() / math.sqrt(d)
+    qf = _scaled(q, scale)
     qg = qf.reshape(b, sq, kvh, group, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     mask = k_pos[:, None, :] <= q_pos[:, :, None]            # causal
@@ -210,7 +219,7 @@ def naive_attention(q, k, v, q_pos, k_pos, window: int = 0):
 
 
 def blockwise_attention(q, k, v, q_pos, k_pos, window: int = 0,
-                        block: int = 512):
+                        block: int = 512, scale: Optional[float] = None):
     """Flash-style online-softmax attention over KV blocks of ``block``
     keys (a Python loop where the reference scans). Peak memory
     O(Sq * block); same signature and semantics as naive_attention."""
@@ -224,7 +233,7 @@ def blockwise_attention(q, k, v, q_pos, k_pos, window: int = 0,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=2 ** 30)
-    qf = (q.float() / math.sqrt(d)).reshape(b, sq, kvh, group, d)
+    qf = _scaled(q, scale).reshape(b, sq, kvh, group, d)
     m = torch.full((b, kvh, group, sq), _NEG, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, kvh, group, sq), dtype=torch.float32, device=q.device)
@@ -254,11 +263,14 @@ def blockwise_attention(q, k, v, q_pos, k_pos, window: int = 0,
 def attention_layer(cfg: ModelConfig, plan: AttnPlan, p: Params,
                     x: torch.Tensor, positions: torch.Tensor,
                     cache: Optional[Params] = None, window: int = 0,
-                    impl: str = "blockwise",
+                    impl: str = "blockwise", rope_on: bool = True,
+                    scale: Optional[float] = None,
                     ) -> Tuple[torch.Tensor, Params]:
     """x: [B,S,D]. cache: {"k","v": [B,Skv,KV,hd], "pos": [B,Skv]} (the
     decode ring buffer). Returns (out [B,S,D], {"k", "v"} of this call,
-    k after RoPE)."""
+    k after RoPE). ``rope_on=False`` leaves q and k without rotary
+    positions (NoPE); ``scale`` is the softmax scale of the scores (None:
+    1/sqrt(head_dim))."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(b, s, plan.h_pad, hd)
@@ -268,8 +280,9 @@ def attention_layer(cfg: ModelConfig, plan: AttnPlan, p: Params,
         q = q + p["bq"].reshape(plan.h_pad, hd)
         k = k + p["bk"].reshape(plan.kv_virtual, hd)
         v = v + p["bv"].reshape(plan.kv_virtual, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         kk, vv, kpos = k, v, positions
@@ -287,7 +300,7 @@ def attention_layer(cfg: ModelConfig, plan: AttnPlan, p: Params,
         # blockwise path for ring-buffer position masks.
         out = flash_attention(q.transpose(1, 2), kk.transpose(1, 2),
                               vv.transpose(1, 2), causal=True,
-                              window=window).transpose(1, 2)
+                              window=window, scale=scale).transpose(1, 2)
     else:
         fn = blockwise_attention if impl == "blockwise" else naive_attention
         if is_sharded(q):
@@ -295,11 +308,11 @@ def attention_layer(cfg: ModelConfig, plan: AttnPlan, p: Params,
             # rule is needed for the einsums over blocks
             heads = _follow(q, 0, 2, 2)
             rows = _follow(q, 0, None, 2)
-            out = _local_map(lambda *a: fn(*a, window=window), heads,
-                             (heads, heads, heads, rows, rows),
+            out = _local_map(lambda *a: fn(*a, window=window, scale=scale),
+                             heads, (heads, heads, heads, rows, rows),
                              (q, kk, vv, positions, kpos))
         else:
-            out = fn(q, kk, vv, positions, kpos, window=window)
+            out = fn(q, kk, vv, positions, kpos, window=window, scale=scale)
     if s == 1 and is_sharded(out):
         # a decode step as the ops that torch's matmul folds a plain tensor
         # into (view, mm, _unsafe_view): DTensor's stride for the size-1
@@ -519,8 +532,8 @@ def register_shardings() -> None:
     from torch.distributed.tensor.experimental import register_sharding
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _flash(q, k, v, causal, window, q_offset):
-        rest = [None, None, None]
+    def _flash(q, k, v, causal, window, q_offset, scale=None):
+        rest = [None, None, None, None]
         return [([p], [p, p, p] + rest)
                 for p in (Replicate(), Shard(0), Shard(1))]
 
@@ -638,12 +651,18 @@ def _aux(cfg: ModelConfig, psum: torch.Tensor, csum: torch.Tensor,
 
 def _experts(p: Params, xin: torch.Tensor) -> torch.Tensor:
     """Every expert's SwiGLU on its capacity buffer: xin [g,e,c,d] ->
-    [g,e,c,d], one batched product per weight, experts on the batch axis."""
+    [g,e,c,d], one batched product per weight, experts on the batch axis.
+    Each temporary is dropped once read, so the expert-major copy of the
+    buffer and the gate and up products are gone before the output is
+    made (at granite-4.0-h-small's 32k-token prefill each buffer is 3.3
+    GB beside 64 GB of weights)."""
     g, e, c, d = xin.shape
     xe = xin.transpose(0, 1).reshape(e, g * c, d)
     gg = torch.bmm(xe, p["w_gate"])
     uu = torch.bmm(xe, p["w_up"])
+    del xe
     hh = F.silu(gg.float()).to(xin.dtype) * uu
+    del gg, uu
     eout = torch.bmm(hh, p["w_down"])                        # [e,g*c,d]
     return eout.reshape(e, g, c, d).transpose(0, 1)
 
@@ -730,8 +749,10 @@ def _einsum_dispatch(p: Params, xg: torch.Tensor, gate: torch.Tensor,
         dispatch = dispatch[..., :el * cap].to(xg.dtype)     # [g,sg,el*cap]
         combine = combine[..., :el * cap].to(xg.dtype)
         xin = dispatch.transpose(1, 2) @ xg                  # [g,el*cap,d]
+        del dispatch
     with tracing.span("moe.experts"):
         eout = _experts(p, xin.reshape(ng, el, cap, d))
+        del xin        # read once: gone before the combine copies eout
     with tracing.span("moe.combine"):
         return combine @ eout.reshape(ng, el * cap, d), onehot  # [g,sg,d]
 
@@ -1046,11 +1067,15 @@ def ssd_decode_step(state, x, dt, A_log, B, C, D):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 prev: Optional[torch.Tensor]):
-    """Depthwise causal conv. x: [B,S,F], w: [K,F], prev: [B,K-1,F] or None.
-    A sum of K shifted slices. Returns (silu(conv(x)), new_prev [B,K-1,F]).
-    On DTensors it runs on each rank's rows and channels (a local map)."""
+                 prev: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor] = None):
+    """Depthwise causal conv. x: [B,S,F], w: [K,F], prev: [B,K-1,F] or None,
+    bias: [F] or None. A sum of K shifted slices (plus the bias), in f32.
+    Returns (silu(conv(x)), new_prev [B,K-1,F]). On DTensors it runs on
+    each rank's rows and channels (a local map), without a bias."""
     if is_sharded(x):
+        if bias is not None:
+            raise NotImplementedError("_causal_conv: a bias on DTensors")
         xp = _follow(x, 0, 2, 2)
         wp = _follow(x, None, 1, 2)
         ins = (xp, wp, None if prev is None else xp)
@@ -1062,6 +1087,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
         prev = torch.zeros((b, k - 1, f), dtype=x.dtype, device=x.device)
     xp = torch.cat([prev, x], dim=1)
     y = sum(xp[:, i:i + s, :].float() * w[i].float() for i in range(k))
+    if bias is not None:
+        y = y + bias.float()
     y = F.silu(y).to(x.dtype)
     return y, xp[:, -(k - 1):, :]
 
@@ -1094,7 +1121,9 @@ def _gated(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
               cache: Optional[Params] = None, want_cache: bool = False):
     """Mamba2 mixer. x: [B,S,D]. If ``cache`` is given (decode), S must be 1.
-    Returns (out [B,S,D], new_cache)."""
+    The convolutions of x, B and C add their biases where ``p`` holds
+    them (``conv_x_bias``, ``conv_B_bias``, ``conv_C_bias``), and run
+    inside the span ``conv``. Returns (out [B,S,D], new_cache)."""
     b, s, d = x.shape
     h, hp = cfg.ssm_heads, cfg.ssm_head_dim
     di = h * hp
@@ -1105,9 +1134,13 @@ def ssm_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Cc = xr @ p["w_C"]
     dt = xr @ p["w_dt"]
     cv = cache or {}
-    xin, conv_x = _causal_conv(xin, p["conv_x"], cv.get("conv_x"))
-    Bc, conv_B = _causal_conv(Bc, p["conv_B"], cv.get("conv_B"))
-    Cc, conv_C = _causal_conv(Cc, p["conv_C"], cv.get("conv_C"))
+    with tracing.span("conv"):
+        xin, conv_x = _causal_conv(xin, p["conv_x"], cv.get("conv_x"),
+                                   p.get("conv_x_bias"))
+        Bc, conv_B = _causal_conv(Bc, p["conv_B"], cv.get("conv_B"),
+                                  p.get("conv_B_bias"))
+        Cc, conv_C = _causal_conv(Cc, p["conv_C"], cv.get("conv_C"),
+                                  p.get("conv_C_bias"))
     dt = _dt_softplus(dt, p["dt_bias"])
     xh = _viewed(xin, (b, s, h, hp))
     if cache is None:

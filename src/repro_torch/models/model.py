@@ -44,6 +44,18 @@ head) scales: a decode step dequantizes each layer's ring to the model
 dtype before attention and quantizes the new slot, and
 ``prefill_with_cache`` quantizes each layer's slots as it writes them.
 
+A :class:`~repro_torch.models.config.PatternConfig` (layers of different
+kinds, which the JAX package has no counterpart of) stacks each block
+leaf over the layers that use it: ``blocks.attn.*`` over the attention
+layers, ``blocks.ssm.*`` over the Mamba layers, the norms and the
+feed-forward over every layer; :meth:`LM._layers` hands layer i the
+slices of its own kind, and the decode cache keeps the KV ring for the
+attention layers beside the SSM and convolution state for the Mamba
+layers, each stacked over its own kind (``k``, ``v``, ``pos`` and
+``state``, ``conv_*``). Its multipliers (embedding, residual branches,
+logits), rotary positions and score scale come from the config; the
+partitioned LM does not take it (``NotImplementedError``).
+
 Training: ``loss_fn`` is the reference's (CE over the text positions,
 the ``labels >= 0`` mask, plus the router's aux loss). ``forward`` carries
 gradients when grad mode is on; with ``cfg.remat`` each block then runs
@@ -66,7 +78,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import tracing
 from ..device import resolve_device
 from . import layers
-from .config import ModelConfig
+from .config import ModelConfig, PatternConfig
 from .sharding import (AttnPlan, Spec, pad_to, placements, plan_attention,
                        shard_shape, spec, tp_size)
 
@@ -156,6 +168,10 @@ def _block_leaves(cfg: ModelConfig, plan: Optional[AttnPlan]
         add("ssm.conv_x", (cfg.d_conv, di), None, "model")
         add("ssm.conv_B", (cfg.d_conv, n), None, None)
         add("ssm.conv_C", (cfg.d_conv, n), None, None)
+        if getattr(cfg, "conv_bias", False):
+            add("ssm.conv_x_bias", (di,), "model")
+            add("ssm.conv_B_bias", (n,), None)
+            add("ssm.conv_C_bias", (n,), None)
         add("ssm.dt_bias", (h,), None)
         add("ssm.A_log", (h,), None)
         add("ssm.D", (h,), None)
@@ -188,6 +204,19 @@ def _block_leaves(cfg: ModelConfig, plan: Optional[AttnPlan]
     return out
 
 
+def leaf_layers(cfg: ModelConfig, name: str) -> Tuple[int, ...]:
+    """The layers whose slices the block leaf ``name`` (``attn.wq``, no
+    ``blocks.``) stacks, in order: every layer, but in a
+    :class:`PatternConfig` the attention layers for ``attn.*`` and the
+    Mamba layers for ``ssm.*``."""
+    if isinstance(cfg, PatternConfig):
+        if name.startswith("attn."):
+            return cfg.layers_of("attention")
+        if name.startswith("ssm."):
+            return cfg.layers_of("mamba")
+    return tuple(range(cfg.n_layers))
+
+
 def _top_leaves(cfg: ModelConfig, vocab_pad: int
                 ) -> Dict[str, Tuple[Tuple[int, ...], Tuple[Any, ...]]]:
     """embed is d-sharded (local gather); lm_head is vocab-sharded."""
@@ -216,17 +245,19 @@ def _layout(cfg: ModelConfig, tp: int) -> Tuple[Optional[AttnPlan], int]:
 def param_shapes(cfg: ModelConfig, tp: int = 1
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Every parameter of the LM of ``cfg`` at TP degree ``tp``: dotted
-    name -> (shape, dtype), block leaves stacked on a leading ``n_layers``
-    axis. The names are the JAX parameter tree's paths joined by dots.
+    name -> (shape, dtype), block leaves stacked on a leading axis of the
+    layers that use them (``n_layers``; :func:`leaf_layers`). The names
+    are the JAX parameter tree's paths joined by dots.
     ``dt_bias``, ``A_log`` and ``D`` are f32 whatever the model dtype, as
     the reference's ``LM.init`` makes them (its ``param_shapes`` writes
     the model dtype for them)."""
     plan, vocab_pad = _layout(cfg, tp)
-    dt, L = _dtype(cfg), cfg.n_layers
+    dt = _dtype(cfg)
     out = {}
     for name, (shape, _) in _block_leaves(cfg, plan).items():
         leaf_dt = torch.float32 if name.split(".")[-1] in _F32_LEAVES else dt
-        out[f"blocks.{name}"] = ((L, *shape), leaf_dt)
+        out[f"blocks.{name}"] = ((len(leaf_layers(cfg, name)), *shape),
+                                 leaf_dt)
     for name, (shape, _) in _top_leaves(cfg, vocab_pad).items():
         out[name] = (shape, dt)
     return out
@@ -288,6 +319,12 @@ class LM(nn.Module):
         self.device = (torch.device(device) if device is not None
                        else resolve_device())
         self.mesh = mesh
+        self.pattern = isinstance(cfg, PatternConfig)
+        if self.pattern and mesh is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: a stack of layers of different kinds "
+                f"(PatternConfig) runs on one device; the partitioned LM "
+                f"does not take it")
         if mesh is not None:
             from ..launch.mesh import logical_mesh
             self.spec_mesh = logical_mesh(mesh)
@@ -300,6 +337,16 @@ class LM(nn.Module):
         shapes = param_shapes(cfg, tp)
         specs = param_specs(cfg, self.spec_mesh) if mesh is not None else {}
         self.cfg = cfg
+        # layer i's index among the layers of its kind: its slice of the
+        # mixer's leaves and of its cache (i itself where every layer is
+        # alike)
+        self._slot = [cfg.layers_of(k).index(i)
+                      for i, k in enumerate(cfg.layer_kinds)] \
+            if self.pattern else list(range(cfg.n_layers))
+        # each stacked block leaf's layers, by its name under ``blocks``
+        self._stacks = {name[len("blocks."):]: leaf_layers(
+            cfg, name[len("blocks."):]) for name in shapes
+            if name.startswith("blocks.")}
         self.tp = tp
         self.plan, self.vocab_pad = _layout(cfg, tp)
         self.dtype = _dtype(cfg)
@@ -503,7 +550,8 @@ class LM(nn.Module):
                 del t
             else:
                 local.normal_(0.0, std, generator=generator)
-        if not self.cfg.is_attention_free:
+        if not self.cfg.is_attention_free and \
+                leaf_layers(self.cfg, "attn.wo"):
             self._mask_dead_heads()
         return self
 
@@ -548,8 +596,8 @@ class LM(nn.Module):
         out: List[Params] = [{} for _ in range(self.cfg.n_layers)]
         for name, t in self.blocks.named_parameters():
             *path, leaf = name.split(".")
-            for tree, ti in zip(out, t.unbind(0)):
-                node = tree
+            for i, ti in zip(self._stacks[name], t.unbind(0)):
+                node = out[i]
                 for part in path:
                     node = node.setdefault(part, {})
                 node[leaf] = ti
@@ -562,6 +610,9 @@ class LM(nn.Module):
                ) -> Tuple[torch.Tensor, Params, Any]:
         """Returns (x, new_cache, aux_loss); the aux loss is an f32 tensor
         under MoE and 0.0 otherwise (no launch on a decode step)."""
+        if self.pattern:
+            return self._pattern_block(p, x, positions, cache, window,
+                                       want_cache)
         cfg = self.cfg
         aux: Any = 0.0
         with tracing.span("norm"):
@@ -613,8 +664,45 @@ class LM(nn.Module):
             x = self._constrain(x, self._act_spec(x))
         return x, new_cache, aux
 
+    def _pattern_block(self, p: Params, x: torch.Tensor,
+                       positions: torch.Tensor, cache: Optional[Params],
+                       window: int, want_cache: bool
+                       ) -> Tuple[torch.Tensor, Params, Any]:
+        """A layer of a :class:`PatternConfig`: its one mixer (attention
+        where ``p`` holds ``attn``, else the Mamba2 SSM), then the MoE,
+        each branch added to the residual times
+        ``residual_scale`` (one rounding: ``torch.add``'s alpha).
+        Attention takes the config's rotary switch and score scale."""
+        cfg = self.cfg
+        aux: Any = 0.0
+        with tracing.span("norm"):
+            h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        new_cache: Dict[str, Any] = {}
+        if "attn" in p:
+            with tracing.span("attention"):
+                a, kv = layers.attention_layer(
+                    cfg, self.plan, p["attn"], h, positions,
+                    cache=cache.get("attn") if cache else None,
+                    window=window,
+                    impl=cfg.attn_impl if cache is None else "blockwise",
+                    rope_on=cfg.rope, scale=cfg.attn_scale or None)
+            new_cache["attn_kv"] = kv
+        else:
+            with tracing.span("ssm"):
+                a, sc = layers.ssm_layer(
+                    cfg, p["ssm"], h, cache=cache.get("ssm") if cache else None,
+                    want_cache=want_cache)
+            new_cache["ssm"] = sc
+        x = torch.add(x, a, alpha=cfg.residual_scale)
+        with tracing.span("norm"):
+            h2 = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        mo, aux = layers.moe_layer(cfg, p["moe"], h2)
+        x = torch.add(x, mo, alpha=cfg.residual_scale)
+        return x, new_cache, aux
+
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return layers.embed_lookup(self.embed, tokens)
+        x = layers.embed_lookup(self.embed, tokens)
+        return x * self.cfg.embed_scale if self.pattern else x
 
     @tracing.spanned("head")
     def logits(self, x: torch.Tensor, keep: Optional[int] = None
@@ -642,6 +730,8 @@ class LM(nn.Module):
             if tuple(head.placements) != want:
                 head = _Relayout.apply(head, self.mesh, want)
         lg = (x @ head).float()
+        if self.pattern:
+            lg = lg / self.cfg.logit_scale
         # mask padded vocab slots
         valid = torch.arange(self.vocab_pad, device=x.device) < self.cfg.vocab
         return torch.where(valid, lg, -1e30)
@@ -711,9 +801,10 @@ class LM(nn.Module):
         """Shapes and dtypes of the decode cache (ring buffer of
         ``window``)."""
         cfg = self.cfg
-        dt, L = self.dtype, cfg.n_layers
+        dt = self.dtype
         out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
         if not cfg.is_attention_free:
+            L = len(leaf_layers(cfg, "attn.wq"))
             kvh, hd = self.plan.kv_virtual, cfg.head_dim
             kv_dt = torch.int8 if cfg.kv_quant else dt
             out["k"] = ((L, batch, window, kvh, hd), kv_dt)
@@ -723,6 +814,7 @@ class LM(nn.Module):
                 out["v_scale"] = ((L, batch, window, kvh), torch.float32)
             out["pos"] = ((L, batch, window), torch.int32)
         if cfg.has_ssm:
+            L = len(leaf_layers(cfg, "ssm.w_x"))
             h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
             di, k = h * hp, cfg.d_conv
             out["state"] = ((L, batch, h, hp, n), torch.float32)
@@ -731,19 +823,33 @@ class LM(nn.Module):
             out["conv_C"] = ((L, batch, k - 1, n), dt)
         return out
 
+    @staticmethod
+    def cache_bytes(cache: Params) -> Dict[str, int]:
+        """The bytes of a decode cache by kind, whole over a mesh:
+        ``cache_bytes_kv``, the KV ring (``k``, ``v``, their scales,
+        ``pos``), and ``cache_bytes_ssm``, the SSM state and convolution
+        windows (``state``, ``conv_*``)."""
+        out = {"cache_bytes_kv": 0, "cache_bytes_ssm": 0}
+        for k, t in cache.items():
+            kind = "ssm" if k in ("state", "conv_x", "conv_B", "conv_C") \
+                else "kv"
+            out[f"cache_bytes_{kind}"] += t.numel() * t.element_size()
+        return out
+
     def init_cache(self, batch: int, window: int) -> Params:
+        shapes = self.cache_shapes(batch, window)
         if self.mesh is not None:
             # [L, batch, ...]: one row replicated, as in _batch_spec
             specs = {k: self._one_row(sp, batch, 1) for k, sp in
                      cache_specs(self.cfg, self.spec_mesh,
                                  batch=batch).items()}
             out = {}
-            for k, (shape, dt) in self.cache_shapes(batch, window).items():
+            for k, (shape, dt) in shapes.items():
                 t = self.sharded_empty(shape, dt, specs[k])
                 out[k] = t.fill_(2 ** 30) if k == "pos" else t.zero_()
             return out
         out = {}
-        for k, (shape, dt) in self.cache_shapes(batch, window).items():
+        for k, (shape, dt) in shapes.items():
             if k == "pos":    # never-written slots are masked out by position
                 out[k] = torch.full(shape, 2 ** 30, dtype=dt,
                                     device=self.device)
@@ -804,29 +910,31 @@ class LM(nn.Module):
             slot = t % cache["k"].shape[2]
         aw = cfg.attn_window if cfg.attn_window else 0
         for i, lp in enumerate(self._layers()):
+            # the layer's slice of its kind's cache (i on a uniform stack)
+            j = self._slot[i]
             layer_cache: Dict[str, Any] = {}
-            if not cfg.is_attention_free:
-                k, v = cache["k"][i], cache["v"][i]
+            if "attn" in lp:
+                k, v = cache["k"][j], cache["v"][j]
                 if cfg.kv_quant:
-                    k = layers.dequantize_kv(k, cache["k_scale"][i],
+                    k = layers.dequantize_kv(k, cache["k_scale"][j],
                                              self.dtype)
-                    v = layers.dequantize_kv(v, cache["v_scale"][i],
+                    v = layers.dequantize_kv(v, cache["v_scale"][j],
                                              self.dtype)
-                layer_cache["attn"] = {"k": k, "v": v, "pos": cache["pos"][i]}
-            if cfg.has_ssm:
+                layer_cache["attn"] = {"k": k, "v": v, "pos": cache["pos"][j]}
+            if "ssm" in lp:
                 layer_cache["ssm"] = {
-                    "state": cache["state"][i], "conv_x": cache["conv_x"][i],
-                    "conv_B": cache["conv_B"][i],
-                    "conv_C": cache["conv_C"][i]}
+                    "state": cache["state"][j], "conv_x": cache["conv_x"][j],
+                    "conv_B": cache["conv_B"][j],
+                    "conv_C": cache["conv_C"][j]}
             x, nc, _ = self._block(lp, x, positions, layer_cache, window=aw)
             with tracing.span("cache_write"):
-                if not cfg.is_attention_free:
-                    self._write_kv(cache, i, slot, nc["attn_kv"]["k"][:, 0],
+                if "attn" in lp:
+                    self._write_kv(cache, j, slot, nc["attn_kv"]["k"][:, 0],
                                    nc["attn_kv"]["v"][:, 0])
-                    self._put(cache["pos"], i, t, slot)
-                if cfg.has_ssm:
+                    self._put(cache["pos"], j, t, slot)
+                if "ssm" in lp:
                     for key in ("state", "conv_x", "conv_B", "conv_C"):
-                        self._put(cache[key], i, nc["ssm"][key])
+                        self._put(cache[key], j, nc["ssm"][key])
         return self.logits(x), cache
 
     @torch.no_grad()
@@ -862,15 +970,16 @@ class LM(nn.Module):
         src = torch.arange(s - take, s, device=x.device)
         slots = src % window
         for i, lp in enumerate(self._layers()):
+            j = self._slot[i]
             x, nc, _ = self._block(lp, x, positions, cache=None,
                                    window=cfg.attn_window, want_cache=True)
             with tracing.span("cache_write"):
-                if not cfg.is_attention_free:
-                    self._write_kv(cache, i, slots,
+                if "attn" in lp:
+                    self._write_kv(cache, j, slots,
                                    nc["attn_kv"]["k"][:, s - take:s],
                                    nc["attn_kv"]["v"][:, s - take:s])
-                    self._put(cache["pos"], i, src.to(torch.int32), slots)
-                if cfg.has_ssm:
+                    self._put(cache["pos"], j, src.to(torch.int32), slots)
+                if "ssm" in lp:
                     for key in ("state", "conv_x", "conv_B", "conv_C"):
-                        self._put(cache[key], i, nc["ssm"][key])
+                        self._put(cache[key], j, nc["ssm"][key])
         return self.logits(x, keep=1), cache

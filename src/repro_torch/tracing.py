@@ -39,7 +39,11 @@ under the top-level span open where it is called (``prefill``,
 ``moe_dropped_slots``, its (token, expert) slots and those past their
 expert's capacity; the SSM counts its whole-sequence SSD calls by route,
 ``ssd_kernel_calls`` (the hand-written kernel) and ``ssd_chunked_calls``
-(the torch chunked form).
+(the torch chunked form); ``serve_lm`` counts the bytes of the cache its
+prefill made, ``cache_bytes_kv`` (the KV ring) and ``cache_bytes_ssm``
+(the SSM state and convolution windows); the partitioned train step counts the bytes of
+the gradients it lays out onto the optimizer state,
+``grad_reduce_bytes``, inside its span ``grad_reduce``.
 
 The record starts anew at the first span of each stretch in which tracing
 is on (a profiler started while tracing was off, or an outermost
